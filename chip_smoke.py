@@ -7,19 +7,32 @@ Phases, one line each, any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA device
    is a failure, nothing falls back to the CPU;
-2. build: compile the three kernels from `mtasr_tpu_torch/csrc/`;
-3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes (B = 8, 10 s audio, WavLM-Large + LLaMA-3.2-1B), with the
-   error against a stated tolerance and both times;
-4. serve: three `Transcriber.transcribe` calls of 8 padded 6-10 s
+2. build: compile the four kernel libraries of `mtasr_tpu_torch/csrc/`,
+   one `nvcc` each, all started together;
+3. kernels: each kernel against its plain PyTorch version at the served
+   paths' shapes (B = 8, 10 s audio, WavLM-Large + LLaMA-3.2-1B; the chunk
+   kernels at L = 8 and 16 over a full cache), with the error against a
+   stated tolerance and both times;
+4. serve (bf16): three `Transcriber.transcribe` calls of 8 padded 6-10 s
    waveforms each, at full width with random bf16 weights from a seeded
-   generator, up to 150 new tokens; the kernels' launch counts prove the
-   run went through them; then the encode / prefill / decode breakdown and
-   the RTFx;
-5. model: the whole model with kernels against the whole model with the
-   plain versions, on one batch: the logits of the prefill and of the
+   generator, up to 150 new tokens; the kernels' launch counts, set to 0
+   just before and read just after, prove the run went through them; then
+   the encode / prefill / decode breakdown and the RTFx;
+5. model (bf16): the whole model with kernels against the whole model with
+   the plain versions, on one batch: the logits of the prefill and of the
    first decode steps (the plain run fed the kernel run's tokens) within a
-   bf16 tolerance, and the greedy-token agreement.
+   bf16 tolerance, and the greedy-token agreement;
+6. short prefill (bf16): one request of 8 waveforms of about 1 s in a 1 s
+   bucket, a prefill of 8 positions at cache offset 0, which runs the chunk
+   kernel (#5); the kernel held against its plain version on the inputs
+   that prefill gave it (copied at each call), which the JSON reports, and
+   the model's logits gated kernels vs plain on that batch;
+7. int8 serve: the same model quantized w8a8 (decoder) with an int8 KV
+   cache, two calls of 8 padded 6-10 s waveforms through the int8 decode
+   kernel (#6), the breakdown and the RTFx beside bf16's; the int8 logits
+   against bf16's; the decoder's int8 kernels against their plain versions
+   (prefill and 8 decode steps, the encoder's kernels on both sides); the
+   short-prefill request of phase 6 through the int8 chunk kernel (#7).
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Imports nothing of JAX or of the JAX
@@ -41,6 +54,11 @@ MAX_NEW = 150
 SEED = 0
 GATE_STEPS = 8        # decode steps whose logits are held kernels vs plain
 LOGITS_TOL = 0.05     # rel-L2 of bf16 logits, kernels vs plain versions
+# the same, int8 leg, the decoder's kernels alone: sound kernels read 0
+# (the w8a8 activation rounding absorbs their last-bit differences), #6 or
+# #7 ignoring its mask 0.146 and 1.08 at the worst step
+LOGITS_TOL_INT8 = 0.02
+SHORT_S = (0.8, 1.0)  # short-prefill waveforms, in a 1 s bucket
 
 
 def fail(msg: str) -> None:
@@ -74,24 +92,79 @@ def device_phase(torch) -> str:
     return card
 
 
-def cuda_ms(torch, fn, iters: int = 20) -> float:
+def cuda_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
+    """ms a call: CUDA events around `iters` calls after 3 warm-ups, the
+    median of `repeats` such runs. A wrapper whose host time exceeds its
+    kernel's is timed by the host, where a single pause moves the mean of
+    20 calls; the median of the runs steps over it."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return sorted(runs)[repeats // 2]
 
 
-def kernel_phase(torch, card: str):
-    """Each kernel against its plain version at the main-path shapes."""
+def compare(torch, card, records, name, source, replaces, run_kernel,
+            run_plain, n_ulps, step=0.0, why="", record=True):
+    """Within n bf16 ulps at max|ref|, plus `step` (the int8 kernels: one
+    int8 step of p, which another order of the softmax's sums may round the
+    other way). With `record`, the error and both times go into `records`
+    (the first call of a name is kept). Returns the error."""
+    out = run_kernel()
+    ref = run_plain()
+    torch.cuda.synchronize()
+    if out.shape != ref.shape:
+        fail(f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
+    err = float((out.float() - ref.float()).abs().max())
+    tol = ulps_tol(ref.float(), n_ulps) + step
+    if not math.isfinite(err) or err > tol:
+        fail(f"{name}: max_abs_err {err} over tolerance {tol} at shape "
+             f"{tuple(out.shape)}")
+    if record and name not in records:
+        ms, plain_ms = cuda_ms(torch, run_kernel), cuda_ms(torch, run_plain)
+        say(f"kernel {name}: max_abs_err {err:.6g} (tol {tol:.6g} = "
+            f"{n_ulps} bf16 ulp at max|ref|{why}) kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms shape {tuple(out.shape)} [{card}]")
+        records[name] = {"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms}
+    else:
+        say(f"kernel {name}: max_abs_err {err:.6g} (tol {tol:.6g}) shape "
+            f"{tuple(out.shape)}")
+    return err
+
+
+INT8_WHY = " + one int8 step of p, 127 * max sp"
+
+
+def p_step(di, q, k8, v8, kvs, mask) -> float:
+    """127 * the largest p scale of the int8 function on these inputs: one
+    int8 step of p at most moves an output element by that much."""
+    _, sp = di.int8_cache_attention(q, k8, v8, kvs, mask)
+    return 127 * float(sp.max())
+
+
+CHUNK_SOURCE = "mtasr_tpu_torch/csrc/decode_attention_chunk.cu"
+
+
+def kernel_phase(torch, card: str, records):
+    """Each kernel against its plain version at the served paths' shapes;
+    the chunk kernels also at L = 8 and 16 over a full cache (the short
+    prefill's own inputs are held in `captured_phase`)."""
+    from mtasr_tpu_torch.models.llama import _quantize_kv
     from mtasr_tpu_torch.ops.kernels import conv_frontend as cf
     from mtasr_tpu_torch.ops.kernels import decode_attention as da
+    from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
     from mtasr_tpu_torch.ops.kernels import flash_attention as fa
 
     g = torch.Generator(device="cuda")
@@ -101,25 +174,8 @@ def kernel_phase(torch, card: str):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
 
-    records = []
-
-    def compare(name, source, replaces, run_kernel, run_plain, n_ulps):
-        out = run_kernel()
-        ref = run_plain()
-        torch.cuda.synchronize()
-        if out.shape != ref.shape:
-            fail(f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
-        err = float((out.float() - ref.float()).abs().max())
-        tol = ulps_tol(ref.float(), n_ulps)
-        ms, plain_ms = cuda_ms(torch, run_kernel), cuda_ms(torch, run_plain)
-        say(f"kernel {name}: max_abs_err {err:.6g} (tol {tol:.6g} = "
-            f"{n_ulps} bf16 ulp at max|ref|) kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms shape {tuple(out.shape)} [{card}]")
-        if not math.isfinite(err) or err > tol:
-            fail(f"{name}: max_abs_err {err} over tolerance {tol}")
-        records.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms})
+    def check(*args, **kw):
+        return compare(torch, card, records, *args, **kw)
 
     # conv layer 0: 10 s of audio -> [8, 31999, 512]
     S = SR * AUDIO_S
@@ -127,10 +183,10 @@ def kernel_phase(torch, card: str):
     w = randn(512, 1, 10, scale=10 ** -0.5)
     b, gm, bt = randn(512, scale=0.02), 1 + randn(512, scale=0.1), \
         randn(512, scale=0.05)
-    compare("conv0_fused", "mtasr_tpu_torch/csrc/conv_frontend.cu",
-            "mtasr_tpu/ops/pallas/conv_frontend.py:172",
-            lambda: cf.conv0_fused(wave, w, b, gm, bt, stride=5),
-            lambda: cf.conv0_plain(wave, w, b, gm, bt, stride=5), 1)
+    check("conv0_fused", "mtasr_tpu_torch/csrc/conv_frontend.cu",
+          "mtasr_tpu/ops/pallas/conv_frontend.py:172",
+          lambda: cf.conv0_fused(wave, w, b, gm, bt, stride=5),
+          lambda: cf.conv0_plain(wave, w, b, gm, bt, stride=5), 1)
 
     # encoder attention: T = S = 499 frames, 16 heads of 64, one short row
     T, H, D = 499, 16, 64
@@ -140,13 +196,13 @@ def kernel_phase(torch, card: str):
     gate = (1 + torch.rand((BATCH, H, T), generator=g, device=dev)).to(bf)
     kv_lens = torch.full((BATCH,), T, dtype=torch.int32, device=dev)
     kv_lens[-1] = 300
-    compare("flash_attention", "mtasr_tpu_torch/csrc/flash_attention.cu",
-            "mtasr_tpu/ops/pallas/flash_attention.py:266",
-            lambda: fa.flash_attention(q, k, v, kv_lens=kv_lens,
-                                       pos_bias=pos_bias, gate=gate),
-            lambda: fa.flash_attention_plain(q, k, v, kv_lens=kv_lens,
-                                             pos_bias=pos_bias, gate=gate),
-            4)
+    check("flash_attention", "mtasr_tpu_torch/csrc/flash_attention.cu",
+          "mtasr_tpu/ops/pallas/flash_attention.py:266",
+          lambda: fa.flash_attention(q, k, v, kv_lens=kv_lens,
+                                     pos_bias=pos_bias, gate=gate),
+          lambda: fa.flash_attention_plain(q, k, v, kv_lens=kv_lens,
+                                           pos_bias=pos_bias, gate=gate),
+          4)
 
     # decode step: LLaMA-1B heads, S_max = 1 + 63 + 150 = 214, one short row
     Hq, Hkv, S_max = 32, 8, 214
@@ -154,30 +210,117 @@ def kernel_phase(torch, card: str):
     kc, vc = randn(BATCH, S_max, Hkv * D), randn(BATCH, S_max, Hkv * D)
     mask = torch.ones((BATCH, S_max), dtype=torch.bool, device=dev)
     mask[-1, 150:] = False
-    compare("decode_attention", "mtasr_tpu_torch/csrc/decode_attention.cu",
-            "mtasr_tpu/ops/pallas/decode_attention.py:117",
-            lambda: da.decode_attention(qd, kc, vc, mask),
-            lambda: da.decode_attention_plain(qd, kc, vc, mask), 4)
-    return records
+    check("decode_attention", "mtasr_tpu_torch/csrc/decode_attention.cu",
+          "mtasr_tpu/ops/pallas/decode_attention.py:117",
+          lambda: da.decode_attention(qd, kc, vc, mask),
+          lambda: da.decode_attention_plain(qd, kc, vc, mask), 4)
+
+    # the int8 cache of the same K / V, quantized as the decoder writes it
+    # (k / v scale rows interleaved per kv head)
+    k8, ks = _quantize_kv(kc.reshape(BATCH, S_max, Hkv, D))
+    v8, vs = _quantize_kv(vc.reshape(BATCH, S_max, Hkv, D))
+    k8, v8 = k8.reshape(kc.shape), v8.reshape(vc.shape)
+    kvs = torch.stack([ks, vs], -1).reshape(BATCH, S_max, 2 * Hkv) \
+        .transpose(1, 2).contiguous()
+
+    check("decode_attention_int8", CHUNK_SOURCE,
+          "mtasr_tpu/ops/pallas/decode_attention.py:354",
+          lambda: di.decode_attention_int8(qd, k8, v8, kvs, mask),
+          lambda: di.decode_attention_int8_plain(qd, k8, v8, kvs, mask), 1,
+          p_step(di, qd[:, None], k8, v8, kvs, mask[:, None]), INT8_WHY)
+
+    # chunks of L positions at the end of a full cache, causal
+    for L in (8, 16):
+        qc = randn(BATCH, L, Hq, D)
+        mc = mask[:, None].repeat(1, L, 1)
+        for pos in range(L):
+            mc[:, pos, S_max - L + pos + 1:] = False
+        check("decode_attention_chunk", CHUNK_SOURCE,
+              "mtasr_tpu/ops/pallas/decode_attention.py:223",
+              lambda: dc.decode_attention_chunk(qc, kc, vc, mc),
+              lambda: dc.decode_attention_chunk_plain(qc, kc, vc, mc), 4,
+              record=False)
+        check("decode_attention_int8_chunk", CHUNK_SOURCE,
+              "mtasr_tpu/ops/pallas/decode_attention.py:443",
+              lambda: dc.decode_attention_int8_chunk(qc, k8, v8, kvs, mc),
+              lambda: dc.decode_attention_int8_chunk_plain(qc, k8, v8, kvs,
+                                                           mc),
+              1, p_step(di, qc, k8, v8, kvs, mc), INT8_WHY, record=False)
 
 
-def full_width_model(torch):
-    from mtasr_tpu_torch.tools import full_width
-    cfg, model, transcriber = full_width.build(SEED, "cuda", torch.bfloat16)
-    n_params = sum(p.numel() for p in model.parameters())
-    return cfg, model, transcriber, n_params
+def captured_phase(torch, card: str, records, calls) -> None:
+    """The chunk kernels against their plain versions on the very inputs
+    that the served short prefill passed them (every decoder layer's q,
+    cache, scales and mask, copied at the call); the JSON takes these."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    if not calls:
+        fail("the short prefill made no chunk-kernel call to check")
+    for name, args in calls:
+        if name == "decode_attention_chunk":
+            q, kc, vc, mc = args
+            err = compare(
+                torch, card, records, name, CHUNK_SOURCE,
+                "mtasr_tpu/ops/pallas/decode_attention.py:223",
+                lambda: dc.decode_attention_chunk(q, kc, vc, mc),
+                lambda: dc.decode_attention_chunk_plain(q, kc, vc, mc), 4)
+        else:
+            q, k8, v8, kvs, mc = args
+            err = compare(
+                torch, card, records, name, CHUNK_SOURCE,
+                "mtasr_tpu/ops/pallas/decode_attention.py:443",
+                lambda: dc.decode_attention_int8_chunk(q, k8, v8, kvs, mc),
+                lambda: dc.decode_attention_int8_chunk_plain(q, k8, v8, kvs,
+                                                             mc),
+                1, p_step(di, q, k8, v8, kvs, mc), INT8_WHY)
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           err)
+    say(f"captured: {len(calls)} chunk-kernel calls of the served short "
+        f"prefill held against their plain versions (S_max "
+        f"{calls[0][1][1].shape[1]}, chunk at cache offset 0)")
 
 
-def serve_phase(torch, card: str, cfg, model, transcriber):
+def expected_counts(cfg, steps, short: bool, int8: bool):
+    """Launches of each kernel for `len(steps)` generate calls of `steps`
+    decode steps each: conv0 once and flash once per encoder layer per
+    call; a decode kernel per decoder layer per step; a chunk kernel per
+    decoder layer per prefill of at most 16 positions."""
+    from mtasr_tpu_torch.ops import kernels
+    L_enc = cfg.encoder.num_hidden_layers
+    L_dec = cfg.decoder.num_hidden_layers
+    out = dict.fromkeys(kernels.WRAPPERS, 0)
+    out["conv0_fused"] = len(steps)
+    out["flash_attention"] = L_enc * len(steps)
+    out["decode_attention_int8" if int8 else "decode_attention"] = \
+        L_dec * sum(steps)
+    if short:
+        out["decode_attention_int8_chunk" if int8 else
+            "decode_attention_chunk"] = L_dec * len(steps)
+    return out
+
+
+def serve_phase(torch, card: str, cfg, transcriber, requests, tag: str,
+                short: bool = False, captured=None):
+    """`transcriber.transcribe` on each request, with the launch counts set
+    to 0 just before and read just after; fails unless each kernel of the
+    path launched exactly as often as the path needs. With `captured` (a
+    list), every chunk-kernel call appends (name, copies of its inputs).
+    Returns (counts, RTFx over the calls after the first)."""
     from unittest import mock
 
     import mtasr_tpu_torch.api as api_mod
+    import mtasr_tpu_torch.models.llama as llama_mod
     from mtasr_tpu_torch.ops import kernels
-    from mtasr_tpu_torch.tools import full_width
 
-    requests = full_width.waveforms(SEED, 3, BATCH, (6.0, 10.0))
     steps = []
     real_generate = api_mod.generate
+    stack = contextlib.ExitStack()
+    for name in (("decode_attention_chunk", "decode_attention_int8_chunk")
+                 if captured is not None else ()):
+        def recording(*args, _name=name, _fn=getattr(llama_mod, name)):
+            captured.append((_name, [a.clone() for a in args]))
+            return _fn(*args)
+        stack.enter_context(mock.patch.object(llama_mod, name, recording))
 
     def recording_generate(*a, **kw):
         out = real_generate(*a, **kw)
@@ -186,9 +329,10 @@ def serve_phase(torch, card: str, cfg, model, transcriber):
         steps.append(out.steps)
         return out
 
-    kernels.reset_launch_counts()
     walls, audio_s = [], []
-    with mock.patch.object(api_mod, "generate", recording_generate):
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with stack, mock.patch.object(api_mod, "generate", recording_generate):
         for wavs in requests:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -199,42 +343,52 @@ def serve_phase(torch, card: str, cfg, model, transcriber):
             audio_s.append(sum(len(w) for w in wavs) / SR)
             if len(texts) != BATCH or not all(isinstance(t, str)
                                               for t in texts):
-                fail("transcribe returned a malformed result")
+                fail(f"{tag}: transcribe returned a malformed result")
     counts = kernels.launch_counts()
-    n_enc, n_steps = len(steps), sum(steps)
-    L_enc = cfg.encoder.num_hidden_layers
-    L_dec = cfg.decoder.num_hidden_layers
-    expect = {"conv0_fused": n_enc, "flash_attention": L_enc * n_enc,
-              "decode_attention": L_dec * n_steps}
-    say(f"serve: 3 requests x {BATCH} waveforms, walls "
-        f"{[round(x, 3) for x in walls]} s, audio {audio_s} s, decode steps "
-        f"{steps}, launches {counts} expected {expect}")
-    if counts != expect or n_steps == 0:
-        fail(f"launch counts {counts} != expected {expect}")
-    rtfx_warm = sum(audio_s[1:]) / sum(walls[1:])
-    say(f"serve: RTFx {rtfx_warm:.2f} (calls 2-3; call 1 "
+    expect = expected_counts(cfg, steps, short,
+                             transcriber.gen.kv_quant)
+    say(f"serve[{tag}]: {len(requests)} requests x {BATCH} waveforms, walls "
+        f"{[round(x, 3) for x in walls]} s, audio "
+        f"{[round(a, 2) for a in audio_s]} s, decode steps {steps}, launches "
+        f"{counts}")
+    if counts != expect or sum(steps) == 0:
+        fail(f"{tag}: launch counts {counts} != expected {expect}")
+    warm = slice(1, None) if len(walls) > 1 else slice(None)
+    rtfx = sum(audio_s[warm]) / sum(walls[warm])
+    say(f"serve[{tag}]: RTFx {rtfx:.2f} (calls after the first; call 1 "
         f"{audio_s[0] / walls[0]:.2f}) B={BATCH} [{card}]")
-    return requests, counts, rtfx_warm
+    return counts, rtfx
 
 
 @contextlib.contextmanager
-def plain_versions(enabled: bool = True):
-    """While enabled, the model calls the kernels' plain versions."""
+def plain_versions(enabled: bool = True, decoder_only: bool = False):
+    """While enabled, the model calls the kernels' plain versions (with
+    decoder_only, the decoder's alone: the encoder keeps its kernels)."""
     from unittest import mock
 
     import mtasr_tpu_torch.models.llama as llama_mod
     import mtasr_tpu_torch.models.wavlm as wavlm_mod
     from mtasr_tpu_torch.ops.kernels import (
-        conv_frontend as cf, decode_attention as da, flash_attention as fa,
+        conv_frontend as cf, decode_attention as da,
+        decode_attention_chunk as dc, decode_attention_int8 as di,
+        flash_attention as fa,
     )
     if not enabled:
         yield
         return
-    with mock.patch.object(wavlm_mod, "conv0_fused", cf.conv0_plain), \
-            mock.patch.object(wavlm_mod, "flash_attention",
-                              fa.flash_attention_plain), \
-            mock.patch.object(llama_mod, "decode_attention",
-                              da.decode_attention_plain):
+    patches = [] if decoder_only else [
+        (wavlm_mod, "conv0_fused", cf.conv0_plain),
+        (wavlm_mod, "flash_attention", fa.flash_attention_plain)]
+    patches += [(llama_mod, "decode_attention", da.decode_attention_plain),
+               (llama_mod, "decode_attention_int8",
+                di.decode_attention_int8_plain),
+               (llama_mod, "decode_attention_chunk",
+                dc.decode_attention_chunk_plain),
+               (llama_mod, "decode_attention_int8_chunk",
+                dc.decode_attention_int8_chunk_plain)]
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in patches:
+            stack.enter_context(mock.patch.object(mod, name, fn))
         yield
 
 
@@ -249,11 +403,10 @@ def breakdown_phase(torch, card: str, cfg, model, transcriber,
                     wavs, plain=False):
     """Encode / prefill / decode of one batch, each timed to a synchronize.
     With plain=True the model runs the kernels' plain versions."""
-    from mtasr_tpu_torch.config import GenerationConfig
     from mtasr_tpu_torch.generate import engine
 
     wav, amask = one_batch(torch, transcriber, wavs)
-    gen = GenerationConfig(do_sample=False)
+    gen = transcriber.gen
     with plain_versions(plain), torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -263,7 +416,7 @@ def breakdown_phase(torch, card: str, cfg, model, transcriber,
         ids, splice = engine.prompt_layout(cfg, BATCH, None, wav.device)
         S_max = ids.shape[1] + enc.encoder_hidden_states.shape[1] + MAX_NEW
         cache, last, n_valid, total = engine._prefill(
-            model, cfg, enc, ids, splice, S_max)
+            model, cfg, enc, ids, splice, S_max, gen.kv_quant)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         out = engine._decode(model, cfg, cache, last.clone(), n_valid,
@@ -286,7 +439,8 @@ def breakdown_phase(torch, card: str, cfg, model, transcriber,
         fail(f"lengths {lengths}")
     audio = float(amask.sum()) / SR
     wall = t3 - t0
-    tag = "plain" if plain else "kernels"
+    tag = ("int8 " if gen.kv_quant else "") + ("plain" if plain else
+                                               "kernels")
     say(f"breakdown[{tag}]: encode {t1 - t0:.4f} s, prefill {t2 - t1:.4f} s,"
         f" decode {1000 * (t3 - t2) / max(out.steps, 1):.3f} ms/step over "
         f"{out.steps} steps, RTFx {audio / wall:.2f} ({audio:.2f} s audio "
@@ -294,7 +448,8 @@ def breakdown_phase(torch, card: str, cfg, model, transcriber,
     return speech.float(), last.float(), out.sequences
 
 
-def step_logits(torch, cfg, model, wav, amask, tokens=None, plain=False):
+def step_logits(torch, cfg, model, gen, wav, amask, tokens=None,
+                plain=False, decoder_only=False):
     """Logits [1 + GATE_STEPS, B, V] of the prefill and the first decode
     steps of `generate`, and the tokens it chose. With `tokens` given, step
     t is fed tokens[:, t] (teacher forcing), so that a second run can be
@@ -309,33 +464,91 @@ def step_logits(torch, cfg, model, wav, amask, tokens=None, plain=False):
         t = len(seen) - 1
         return logits.argmax(-1) if tokens is None else tokens[:, t]
 
-    with plain_versions(plain), \
+    with plain_versions(plain, decoder_only), \
             mock.patch.object(engine, "_sample_token", sample):
-        out = engine.generate(model, cfg, wav, amask,
+        out = engine.generate(model, cfg, wav, amask, gen=gen,
                               max_new_tokens=GATE_STEPS + 1)
     return torch.stack(seen), out.sequences
 
 
-def logits_phase(torch, cfg, model, transcriber, wavs) -> None:
-    """The whole model with kernels against the whole model with the plain
-    versions: rel-L2 of the logits at the prefill and at each of the first
-    GATE_STEPS decode steps, each within LOGITS_TOL."""
+def logits_phase(torch, cfg, model, transcriber, wavs, tag: str) -> None:
+    """The model with kernels against the model with the plain versions:
+    rel-L2 of the logits at the prefill and at each of the first GATE_STEPS
+    decode steps, each within the gate. bf16: the whole model, within
+    LOGITS_TOL. int8: the decoder's kernels alone (both sides run the
+    encoder's kernels, so its bf16 differences, which w8a8 amplifies, do
+    not enter), within LOGITS_TOL_INT8. Fails unless the kernel run
+    launched the leg's decode kernel and the plain run none of the kernels
+    it replaced."""
+    from mtasr_tpu_torch.ops import kernels
     wav, amask = one_batch(torch, transcriber, wavs)
-    lk, toks = step_logits(torch, cfg, model, wav, amask)
-    lp, _ = step_logits(torch, cfg, model, wav, amask, tokens=toks,
-                        plain=True)
+    gen = transcriber.gen
+    int8 = gen.kv_quant
+    tol = LOGITS_TOL_INT8 if int8 else LOGITS_TOL
+    n0 = kernels.launch_counts()
+    lk, toks = step_logits(torch, cfg, model, gen, wav, amask)
+    n1 = kernels.launch_counts()
+    lp, _ = step_logits(torch, cfg, model, gen, wav, amask, tokens=toks,
+                        plain=True, decoder_only=int8)
+    n2 = kernels.launch_counts()
     torch.cuda.synchronize()
+    replaced = [n for n in kernels.WRAPPERS if not int8 or "decode" in n]
+    step_kernel = "decode_attention_int8" if int8 else "decode_attention"
+    if n1[step_kernel] == n0[step_kernel] or \
+            any(n2[n] != n1[n] for n in replaced):
+        fail(f"{tag}: the kernel run or the plain run took the wrong route "
+             f"(launches {n0} -> {n1} -> {n2})")
     if lk.shape != lp.shape or lk.shape[0] != GATE_STEPS + 1 or \
             not bool(torch.isfinite(lk).all()):
         fail(f"step logits: shapes {tuple(lk.shape)} / {tuple(lp.shape)} "
              "or non-finite values")
     rel = [float((lk[t] - lp[t]).norm() / lp[t].norm())
            for t in range(lk.shape[0])]
-    say(f"model: kernels vs plain, logits rel_l2 at prefill and decode steps "
-        f"1-{GATE_STEPS}: {[round(r, 5) for r in rel]} (tol {LOGITS_TOL} "
-        "each)")
-    if not all(math.isfinite(r) and r <= LOGITS_TOL for r in rel):
-        fail(f"step logits rel_l2 {max(rel)} over {LOGITS_TOL}")
+    what = "decoder kernels" if int8 else "kernels"
+    say(f"model[{tag}]: {what} vs plain, logits rel_l2 at prefill and decode"
+        f" steps 1-{GATE_STEPS}: {[round(r, 5) for r in rel]} (tol {tol} "
+        f"each)")
+    if not all(math.isfinite(r) and r <= tol for r in rel):
+        fail(f"{tag}: step logits rel_l2 {max(rel)} over {tol}")
+
+
+def short_requests(seed: int):
+    """One request of BATCH waveforms of SHORT_S seconds."""
+    from mtasr_tpu_torch.tools import full_width
+    return full_width.waveforms(seed, 1, BATCH, SHORT_S)
+
+
+def short_transcriber(transcriber):
+    """The same model and settings with a 1 s first bucket, so that a short
+    batch is padded to 1 s: 7 speech frames, a prefill of 8 positions."""
+    import dataclasses
+
+    from mtasr_tpu_torch.api import Transcriber
+    dc = dataclasses.replace(transcriber.dc,
+                             bucket_boundaries_seconds=(1.0, AUDIO_S))
+    return Transcriber(transcriber.cfg, transcriber.model,
+                       transcriber.tokenizer, gen=transcriber.gen, dc=dc)
+
+
+def short_prefill_phase(torch, card: str, cfg, transcriber, records,
+                        launches, leg: str) -> None:
+    """A request of short waveforms in a 1 s bucket: its prefill of 8
+    positions runs the chunk kernel of the leg (#5 or #7) once a decoder
+    layer. The launches are counted; the kernel is then held against its
+    plain version on the inputs the prefill gave it, and the model with
+    kernels against the plain versions on the same batch."""
+    tr = short_transcriber(transcriber)
+    wavs = short_requests(SEED + 1)
+    captured = []
+    counts, _ = serve_phase(torch, card, cfg, tr, wavs,
+                            f"{leg} short prefill", short=True,
+                            captured=captured)
+    for name, n in counts.items():
+        launches[name] += n
+    captured_phase(torch, card, records, captured)
+    logits_phase(torch, cfg, transcriber.model, tr, wavs[0],
+                 f"{leg} short prefill")
+    torch.cuda.synchronize()
 
 
 def main() -> None:
@@ -347,6 +560,7 @@ def main() -> None:
 
     from mtasr_tpu_torch.ops import kernels
     from mtasr_tpu_torch.ops.kernels import _build
+    from mtasr_tpu_torch.tools import full_width
 
     # full-precision f32 references: no TF32 in convs or matmuls
     torch.backends.cudnn.allow_tf32 = False
@@ -355,23 +569,27 @@ def main() -> None:
     t0 = time.perf_counter()
     kernels.build_all()
     torch.cuda.synchronize()
-    say(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
+    say(f"build: {time.perf_counter() - t0:.2f} s (nvcc, in parallel "
         f"{ {k: round(v, 2) for k, v in _build.build_seconds.items()} })")
 
-    records = kernel_phase(torch, card)
+    records = {}
+    kernel_phase(torch, card, records)
     torch.cuda.synchronize()
+    launches = dict.fromkeys(kernels.WRAPPERS, 0)
 
+    # -- bf16 ------------------------------------------------------------
     t0 = time.perf_counter()
-    cfg, model, transcriber, n_params = full_width_model(torch)
+    cfg, model, transcriber = full_width.build(SEED, "cuda", torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
     torch.cuda.synchronize()
     say(f"model: WavLM-Large + LLaMA-3.2-1B, {n_params} parameters bf16, "
         f"random init {time.perf_counter() - t0:.2f} s")
 
-    requests, counts, _ = serve_phase(torch, card, cfg, model,
-                                      transcriber)
-    torch.cuda.synchronize()
-    for r in records:
-        r["launches"] = counts[r["name"]]
+    requests = full_width.waveforms(SEED, 3, BATCH, (6.0, 10.0))
+    counts, rtfx_bf16 = serve_phase(torch, card, cfg, transcriber, requests,
+                                    "bf16")
+    for name, n in counts.items():
+        launches[name] += n
 
     sp_k, lg_k, seq_k = breakdown_phase(torch, card, cfg, model,
                                         transcriber, requests[-1])
@@ -391,9 +609,49 @@ def main() -> None:
         f"{float((lg_k.argmax(-1) == lg_p.argmax(-1)).float().mean()):.3f}")
     if not math.isfinite(rel) or rel > LOGITS_TOL:
         fail(f"full-width logits rel_l2 {rel} over {LOGITS_TOL}")
-    logits_phase(torch, cfg, model, transcriber, requests[-1])
+    logits_phase(torch, cfg, model, transcriber, requests[-1], "bf16")
     torch.cuda.synchronize()
+    short_prefill_phase(torch, card, cfg, transcriber, records, launches,
+                        "bf16")
 
+    # -- int8: w8a8 decoder + int8 KV cache --------------------------------
+    t0 = time.perf_counter()
+    cfg8, model8, tr8 = full_width.build(SEED, "cuda", torch.bfloat16,
+                                         quantize="w8a8", kv_quant=True)
+    torch.cuda.synchronize()
+    n_q = sum(b.numel() for n, b in model8.named_buffers()
+              if n.endswith("weight_q8a8"))
+    say(f"model: int8 leg, {n_q} int8 decoder weights (w8a8, tied head "
+        f"materialised), int8 KV cache, built {time.perf_counter() - t0:.2f} "
+        "s")
+    counts, rtfx_int8 = serve_phase(torch, card, cfg8, tr8, requests[1:],
+                                    "int8")
+    for name, n in counts.items():
+        launches[name] += n
+    say(f"serve: RTFx int8 {rtfx_int8:.2f} vs bf16 {rtfx_bf16:.2f} (calls "
+        f"after the first of each leg) B={BATCH} [{card}]")
+
+    _, lg_8, _ = breakdown_phase(torch, card, cfg8, model8, tr8,
+                                 requests[-1])
+    torch.cuda.synchronize()
+    breakdown_phase(torch, card, cfg8, model8, tr8, requests[-1], plain=True)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(lg_8).all()):
+        fail("int8 prefill logits not finite")
+    say(f"model: int8 vs bf16 prefill logits rel_l2 "
+        f"{float((lg_8 - lg_k).norm() / lg_k.norm()):.5g} (w8a8 + int8 KV "
+        "against bf16, same weights; reported, not gated), first-token "
+        f"argmax agree {float((lg_8.argmax(-1) == lg_k.argmax(-1)).float().mean()):.3f}")
+    logits_phase(torch, cfg8, model8, tr8, requests[-1], "int8")
+    torch.cuda.synchronize()
+    short_prefill_phase(torch, card, cfg8, tr8, records, launches, "int8")
+
+    records = list(records.values())
+    for r in records:
+        r["launches"] = launches[r["name"]]
+    if len(records) != len(kernels.WRAPPERS) or \
+            not all(r["launches"] > 0 for r in records):
+        fail(f"kernels not all launched on the served paths: {launches}")
     say(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,10 @@
     t = Transcriber(cfg, model, tokenizer)
     texts = t.transcribe([wav_a, wav_b])     # greedy SOT decode
 
+int8 serving: quantize the model in place
+(`utils.quantize.quantize_for_serving(model, "w8a8")`) and give the
+Transcriber `gen=GenerationConfig(kv_quant=True)` for the int8 KV cache.
+
 Inputs are normalised and batched on the host (`data/`), decoded on the
 model's device, and come back in input order whatever the batching.
 """

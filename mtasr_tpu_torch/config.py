@@ -178,8 +178,9 @@ class GenerationConfig:
     temperature: float = 1.0
     top_k: int = 0
     top_p: float = 1.0
-    # not ported yet; a config that asks for them is refused
+    # int8 KV cache (per-(row, slot, head) scales)
     kv_quant: bool = False
+    # not ported yet; a config that asks for it is refused
     speculative: Optional[str] = None
     # encode the batch this many rows at a time (None: all at once)
     encode_chunk: Optional[int] = None

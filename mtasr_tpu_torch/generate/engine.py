@@ -107,9 +107,11 @@ def _sample_token(logits: torch.Tensor, gen: GenerationConfig,
 
 def _prefill(model: SpeechEncoderDecoderModel,
              cfg: SpeechEncoderDecoderConfig, enc: EncodedSpeech,
-             prefill_ids: torch.Tensor, splice_index: int, S_max: int):
-    """Splice the embeddings, run the prefill into a fresh KV cache.
-    Returns (cache, last_logits [B, V], n_valid [B], total_prefill)."""
+             prefill_ids: torch.Tensor, splice_index: int, S_max: int,
+             kv_quant: bool = False):
+    """Splice the embeddings, run the prefill into a fresh KV cache (int8
+    with `kv_quant`). Returns (cache, last_logits [B, V], n_valid [B],
+    total_prefill)."""
     dec, dec_cfg = model.decoder, cfg.decoder
     speech = enc.encoder_hidden_states
     B, Ts = speech.shape[:2]
@@ -134,7 +136,8 @@ def _prefill(model: SpeechEncoderDecoderModel,
     position_ids = torch.where(idx < splice_index + Ts, idx,
                                idx - Ts + n_valid[:, None])
 
-    cache = KVCache.init(dec_cfg, B, S_max, dtype=speech.dtype, device=device)
+    cache = KVCache.init(dec_cfg, B, S_max, dtype=speech.dtype, device=device,
+                         quantized=kv_quant)
     if Lp > splice_index:
         # the last suffix token is the last real element of every row
         logits, cache = llama_forward(
@@ -199,10 +202,6 @@ def _check_gen(gen: GenerationConfig) -> None:
         raise NotImplementedError("speculative decoding is not ported yet "
                                   "(ROADMAP.md queue 1, item 13: decoding "
                                   "variants)")
-    if gen.kv_quant:
-        raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP.md queue 1, item 9: int8 "
-                                  "serving)")
 
 
 @torch.inference_mode()
@@ -228,7 +227,7 @@ def generate(model: SpeechEncoderDecoderModel,
     Lp = prefill_ids.shape[1]
     S_max = Lp + enc.encoder_hidden_states.shape[1] + max_new_tokens
     cache, last_logits, n_valid, total_prefill = _prefill(
-        model, cfg, enc, prefill_ids, splice_index, S_max)
+        model, cfg, enc, prefill_ids, splice_index, S_max, gen.kv_quant)
     return _decode(model, cfg, cache, last_logits, n_valid, Lp,
                    total_prefill, enc.encoder_hidden_states.dtype, gen,
                    int(max_new_tokens), generator)

@@ -12,8 +12,70 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mtasr_tpu_torch.ops.int8 import INV127
 
-def linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+
+class QuantLinear(nn.Module):
+    """An int8 linear for serving (`utils/quantize.py`): `weight_q8a8`
+    (int8 activations at run time too) or `weight_q8` (weight only), int8
+    [out, in], with the per-output-row `scale` (f32 [out]) and, if the
+    linear had one, its `bias`: the JAX tree's keys, held as buffers."""
+
+    def __init__(self, in_features: int, out_features: int, mode: str,
+                 bias_dtype=None, device=None):
+        super().__init__()
+        if mode not in ("w8", "w8a8"):
+            raise ValueError(f"quantize mode {mode!r} not in w8 / w8a8")
+        self.mode = mode
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer(self.weight_key, torch.empty(
+            (out_features, in_features), dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.empty(
+            out_features, dtype=torch.float32, device=device))
+        if bias_dtype is None:
+            self.bias = None
+        else:
+            self.register_buffer("bias", torch.empty(
+                out_features, dtype=bias_dtype, device=device))
+
+    @property
+    def weight_key(self) -> str:
+        return "weight_q8a8" if self.mode == "w8a8" else "weight_q8"
+
+    @property
+    def weight_int8(self) -> torch.Tensor:
+        return getattr(self, self.weight_key)
+
+
+def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """[M, K] int8 @ [N, K]^T int8 -> [M, N] int32, exact. On CUDA,
+    cuBLASLt through `torch._int_mm`, which refuses M <= 16: such an
+    activation is padded with zero rows to 32 (zero rows quantize to zero
+    and are sliced off). The weight goes in as the transposed view of its
+    contiguous [out, in] buffer, the layout cuBLASLt's int8 path takes."""
+    M = xq.shape[0]
+    if xq.device.type == "cuda" and M <= 16:
+        xq = F.pad(xq, (0, 0, 0, 32 - M))
+    return torch._int_mm(xq, wq.t())[:M]
+
+
+def linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """y = x W^T + b, with W cast to x's dtype; a `QuantLinear` computes as
+    `mtasr_tpu/models/layers.py:43-69` does: w8a8 quantizes each row of x
+    (scale max|x| / 127, at least 1e-12), multiplies int8 x int8 into
+    int32 and rescales in f32; w8 dequantizes the weight into x's dtype."""
+    if isinstance(m, QuantLinear):
+        if m.mode == "w8a8":
+            xf = x.float()
+            sx = (xf.abs().amax(-1, keepdim=True) * INV127).clamp_min(1e-12)
+            xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+            acc = _int8_matmul(xq.reshape(-1, x.shape[-1]), m.weight_int8)
+            acc = acc.reshape(*x.shape[:-1], m.out_features)
+            y = (acc.float() * sx * m.scale).to(x.dtype)
+        else:
+            w = m.weight_int8.to(x.dtype) * m.scale.to(x.dtype)[:, None]
+            y = F.linear(x, w)
+        return y if m.bias is None else y + m.bias.to(x.dtype)
     b = m.bias.to(x.dtype) if m.bias is not None else None
     return F.linear(x, m.weight.to(x.dtype), b)
 

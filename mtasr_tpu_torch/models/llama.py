@@ -4,9 +4,13 @@
 The composite model hands the decoder plain `inputs_embeds` and
 `position_ids` (the `[prefix | speech | suffix]` splice is built outside),
 so the decoder is splice-agnostic. The KV cache keeps the JAX package's
-merged-lane `[B, S_max, Hkv*D]` layout per layer; a decode step (L = 1)
-attends over it through the `decode_attention` kernel, prefill through
-plain attention (XLA in the JAX package as well).
+merged-lane `[B, S_max, Hkv*D]` layout per layer, bf16 or int8. A cached
+forward routes as the JAX package's does (`models/llama.py:304-378`),
+without its TPU lane-width gate: L = 1 through `decode_attention` (#4) or
+`decode_attention_int8` (#6), 1 < L <= 16 through `decode_attention_chunk`
+(#5) or `decode_attention_int8_chunk` (#7), longer prefills through plain
+attention (XLA in the JAX package as well), which for an int8 cache is
+dequantized attention in the activation dtype.
 
 Parameter names are the JAX tree's flat keys under `decoder.`.
 """
@@ -19,9 +23,16 @@ import torch
 from torch import nn
 
 from mtasr_tpu_torch.config import LlamaConfig
-from mtasr_tpu_torch.models.layers import embed, linear
+from mtasr_tpu_torch.models.layers import QuantLinear, embed, linear
 from mtasr_tpu_torch.ops.attention import dot_product_attention
+from mtasr_tpu_torch.ops.int8 import INV127
 from mtasr_tpu_torch.ops.kernels.decode_attention import decode_attention
+from mtasr_tpu_torch.ops.kernels.decode_attention_chunk import (
+    MAX_L as CHUNK_MAX_L, decode_attention_chunk, decode_attention_int8_chunk,
+)
+from mtasr_tpu_torch.ops.kernels.decode_attention_int8 import (
+    decode_attention_int8,
+)
 from mtasr_tpu_torch.ops.norms import rms_norm
 from mtasr_tpu_torch.ops.rope import (
     apply_rotary_emb, compute_rope_freqs, rope_cos_sin,
@@ -31,27 +42,53 @@ from mtasr_tpu_torch.ops.rope import (
 @dataclass
 class KVCache:
     """Per-layer [B, S_max, Hkv*D] key / value buffers and the [B, S_max]
-    slot-validity mask (False = empty or padding). Written in place."""
+    slot-validity mask (False = empty or padding). Written in place.
+
+    int8 (`init(..., quantized=True)`): int8 buffers, and per layer one
+    `kv_scale` [B, 2*Hkv, S_max] bf16 of per-(row, slot, head) symmetric
+    scales with kv head h's k scales in row 2h and its v scales in row
+    2h+1, interleaved as the JAX package writes them (`llama.py:258-262`;
+    its docstrings at `:52-54` and `decode_attention.py:341-342` say "k rows
+    then v rows", which the code does not do)."""
     k: List[torch.Tensor]
     v: List[torch.Tensor]
     valid: torch.Tensor
+    kv_scale: Optional[List[torch.Tensor]] = None
 
     @classmethod
     def init(cls, cfg: LlamaConfig, batch: int, max_len: int,
-             dtype: torch.dtype, device) -> "KVCache":
+             dtype: torch.dtype, device, quantized: bool = False
+             ) -> "KVCache":
         shape = (batch, max_len, cfg.num_key_value_heads * cfg.head_dim_)
         n = cfg.num_hidden_layers
+        buf = torch.int8 if quantized else dtype
+        scales = None
+        if quantized:
+            scales = [torch.zeros((batch, 2 * cfg.num_key_value_heads,
+                                   max_len), dtype=torch.bfloat16,
+                                  device=device) for _ in range(n)]
         return cls(
-            k=[torch.zeros(shape, dtype=dtype, device=device)
+            k=[torch.zeros(shape, dtype=buf, device=device)
                for _ in range(n)],
-            v=[torch.zeros(shape, dtype=dtype, device=device)
+            v=[torch.zeros(shape, dtype=buf, device=device)
                for _ in range(n)],
             valid=torch.zeros((batch, max_len), dtype=torch.bool,
-                              device=device))
+                              device=device),
+            kv_scale=scales)
 
     @property
     def max_len(self) -> int:
         return self.k[0].shape[1]
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, L, H, D] -> (int8 [B, L, H, D], bf16 scale [B, L, H]). The scale
+    is rounded to bf16 before quantizing, so the stored int8 values are
+    multiples of the scale the kernels read (`llama.py:103-114`)."""
+    xf = x.float()
+    s = (xf.abs().amax(-1) * INV127).clamp_min(1e-8).to(torch.bfloat16)
+    q = torch.clamp(torch.round(xf / s[..., None].float()), -127, 127)
+    return q.to(torch.int8), s
 
 
 class RMSNorm(nn.Module):
@@ -130,8 +167,10 @@ def embed_tokens(dec: Llama, cfg: LlamaConfig, input_ids: torch.Tensor,
 
 def lm_head(dec: Llama, cfg: LlamaConfig,
             hidden: torch.Tensor) -> torch.Tensor:
-    w = (dec.lm_head.weight if hasattr(dec, "lm_head")
-         else dec.model.embed_tokens.weight)
+    head = getattr(dec, "lm_head", None)
+    if isinstance(head, QuantLinear):   # a quantized head wins, tied or not
+        return linear(head, hidden)
+    w = head.weight if head is not None else dec.model.embed_tokens.weight
     return hidden @ w.to(hidden.dtype).t()
 
 
@@ -148,22 +187,41 @@ def _attention(att: _SelfAttention, cfg: LlamaConfig, x: torch.Tensor,
     q, k = apply_rotary_emb(q, k, cos, sin)
     if kv_cache is None:
         out = dot_product_attention(q, k, v, mask=mask, scale=D ** -0.5)
+        return linear(att.o_proj, out.reshape(B, L, Hq * D))
+    # In place: the step's K/V go straight into their slots of the
+    # preallocated cache (the JAX package, immutable, wrote a new buffer with
+    # dynamic_update_slice). Attention then reads what was written: for an
+    # int8 cache the round-tripped K/V, not the fresh ones.
+    kc, vc = kv_cache.k[layer_idx], kv_cache.v[layer_idx]
+    end = cache_offset + L
+    kvs = None
+    if kv_cache.kv_scale is not None:
+        k8, ks = _quantize_kv(k)
+        v8, vs = _quantize_kv(v)
+        kc[:, cache_offset:end] = k8.reshape(B, L, Hkv * D)
+        vc[:, cache_offset:end] = v8.reshape(B, L, Hkv * D)
+        kvs = kv_cache.kv_scale[layer_idx]
+        kvs[:, :, cache_offset:end] = torch.stack(
+            [ks, vs], dim=-1).reshape(B, L, 2 * Hkv).transpose(1, 2)
     else:
-        kc, vc = kv_cache.k[layer_idx], kv_cache.v[layer_idx]
-        # In place: the step's K/V go straight into their slots of the
-        # preallocated cache (the JAX package, immutable, wrote a new buffer
-        # with dynamic_update_slice).
-        kc[:, cache_offset:cache_offset + L] = k.reshape(B, L, Hkv * D)
-        vc[:, cache_offset:cache_offset + L] = v.reshape(B, L, Hkv * D)
-        if L == 1:
-            out = decode_attention(q[:, 0].contiguous(), kc, vc,
-                                   mask[:, 0, 0, :].contiguous())[:, None]
-        else:
-            S = kc.shape[1]
-            out = dot_product_attention(
-                q, kc.reshape(B, S, Hkv, D).to(x.dtype),
-                vc.reshape(B, S, Hkv, D).to(x.dtype), mask=mask,
-                scale=D ** -0.5)
+        kc[:, cache_offset:end] = k.reshape(B, L, Hkv * D)
+        vc[:, cache_offset:end] = v.reshape(B, L, Hkv * D)
+    if L == 1:
+        qd, md = q[:, 0].contiguous(), mask[:, 0, 0, :].contiguous()
+        out = (decode_attention(qd, kc, vc, md) if kvs is None else
+               decode_attention_int8(qd, kc, vc, kvs, md))[:, None]
+    elif L <= CHUNK_MAX_L:
+        qc, mc = q.contiguous(), mask[:, 0].contiguous()
+        out = (decode_attention_chunk(qc, kc, vc, mc) if kvs is None else
+               decode_attention_int8_chunk(qc, kc, vc, kvs, mc))
+    else:
+        S = kc.shape[1]
+        kd = kc.reshape(B, S, Hkv, D).to(x.dtype)
+        vd = vc.reshape(B, S, Hkv, D).to(x.dtype)
+        if kvs is not None:   # dequantized in the activation dtype
+            kd = kd * kvs[:, 0::2].transpose(1, 2)[..., None].to(x.dtype)
+            vd = vd * kvs[:, 1::2].transpose(1, 2)[..., None].to(x.dtype)
+        out = dot_product_attention(q, kd, vd, mask=mask, scale=D ** -0.5)
     return linear(att.o_proj, out.reshape(B, L, Hq * D))
 
 

@@ -329,7 +329,7 @@ def wavlm_forward(model: WavLM, cfg: WavLMConfig, input_values: torch.Tensor,
 
     The waveform is cast to the model's dtype first, so a bf16 model runs
     bf16 end to end (the JAX package computes in the waveform's dtype)."""
-    dtype = model.feature_projection.projection.weight.dtype
+    dtype = model.feature_projection.layer_norm.weight.dtype
     extract = feature_encoder(model.feature_extractor, cfg,
                               input_values.to(dtype).contiguous())
     T = extract.shape[1]

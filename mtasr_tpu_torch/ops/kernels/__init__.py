@@ -1,28 +1,40 @@
-"""The hand-written Hopper kernels of the main path, each beside its plain
-PyTorch version. A wrapper takes the plain version for a CPU tensor and
-launches its CUDA kernel (built from `mtasr_tpu_torch/csrc/` at first use)
-for a CUDA tensor; it has no other route. Each wrapper counts its kernel
-launches in a plain int attribute, `launches`.
+"""The hand-written Hopper kernels of the served paths, each beside its
+plain PyTorch version. A wrapper takes the plain version for a CPU tensor
+and launches its CUDA kernel (built from `mtasr_tpu_torch/csrc/` at first
+use) for a CUDA tensor; it has no other route. Each wrapper counts its
+kernel launches in a plain int attribute, `launches`.
 
 Nothing here imports or builds a kernel when the module is imported.
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 from mtasr_tpu_torch.ops.kernels import (
-    conv_frontend, decode_attention, flash_attention,
+    conv_frontend, decode_attention, decode_attention_chunk,
+    decode_attention_int8, flash_attention,
 )
 
-WRAPPERS = {"conv0_fused": conv_frontend.conv0_fused,
-            "flash_attention": flash_attention.flash_attention,
-            "decode_attention": decode_attention.decode_attention}
+WRAPPERS = {
+    "conv0_fused": conv_frontend.conv0_fused,
+    "flash_attention": flash_attention.flash_attention,
+    "decode_attention": decode_attention.decode_attention,
+    "decode_attention_int8": decode_attention_int8.decode_attention_int8,
+    "decode_attention_chunk": decode_attention_chunk.decode_attention_chunk,
+    "decode_attention_int8_chunk":
+        decode_attention_chunk.decode_attention_int8_chunk,
+}
+_MODULES = (conv_frontend, flash_attention, decode_attention,
+            decode_attention_chunk)     # decode_attention_int8 shares chunk's
 
 
 def build_all() -> None:
-    """Compile (or load) every kernel library of the main path."""
-    for mod in (conv_frontend, flash_attention, decode_attention):
-        mod.build()
+    """Compile (or load) every kernel library, one `nvcc` per source, all
+    started together."""
+    with ThreadPoolExecutor(len(_MODULES)) as pool:
+        for f in [pool.submit(mod.build) for mod in _MODULES]:
+            f.result()
 
 
 def reset_launch_counts() -> None:

@@ -35,7 +35,8 @@ I = ctypes.c_int
 F = ctypes.c_float
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_lock = threading.Lock()                      # guards _name_locks
+_name_locks: Dict[str, threading.Lock] = {}   # one build at a time per name
 build_seconds: Dict[str, float] = {}   # name -> nvcc wall time, this process
 
 
@@ -61,8 +62,14 @@ def library_path(name: str) -> Path:
 def load(name: str, entry: str, argtypes) -> ctypes.CDLL:
     """The library built from `csrc/<name>.cu` (compiled if needed), with
     `entry`'s argument types declared (every pointer and the stream as
-    c_void_p, so ctypes never cuts one to 32 bits)."""
+    c_void_p, so ctypes never cuts one to 32 bits). Libraries of different
+    names build concurrently when called from several threads."""
+    lib = _libs.get(name)
+    if lib is not None:     # the launch path: no lock once loaded
+        return lib
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -1,9 +1,10 @@
 """Where the time of one full-width batch goes on the GPU.
 
     python -m mtasr_tpu_torch.tools.profile_path [--batch 8] [--steps 32]
-        [--trace-dir DIR]
+        [--quantize w8a8] [--kv_quant] [--trace-dir DIR]
 
-Builds the served model (`full_width.build`), prepares one batch of 6-10 s
+Builds the served model (`full_width.build`; `--quantize` / `--kv_quant`:
+the int8 serving leg), prepares one batch of 6-10 s
 waveforms through the Transcriber's batcher, and after two warm-up passes
 runs encode, prefill and `--steps` decode steps twice: once without the
 profiler for the wall time of each phase, then under `torch.profiler` for
@@ -83,17 +84,23 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--quantize", choices=("w8", "w8a8"), default=None,
+                    help="int8 decoder weights")
+    ap.add_argument("--kv_quant", action="store_true",
+                    help="int8 KV cache")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_path needs a CUDA device")
     B = args.batch
-    cfg, model, tr = full_width.build(args.seed, "cuda", torch.bfloat16)
+    cfg, model, tr = full_width.build(args.seed, "cuda", torch.bfloat16,
+                                      quantize=args.quantize,
+                                      kv_quant=args.kv_quant)
     wavs = full_width.waveforms(args.seed, 1, B)[0]
     batch = next(iter(tr._batches(tr._examples(wavs, ""), B)))
     wav = torch.from_numpy(batch.arrays["input_values"]).cuda()
     amask = torch.from_numpy(batch.arrays["audio_mask"]).cuda()
-    gen = GenerationConfig(do_sample=False)
+    gen = GenerationConfig(do_sample=False, kv_quant=args.kv_quant)
     ids, splice = engine.prompt_layout(cfg, B, None, wav.device)
     Lp = ids.shape[1]
 
@@ -102,7 +109,8 @@ def main(argv=None) -> None:
 
     def prefill(enc):
         S_max = Lp + enc.encoder_hidden_states.shape[1] + MAX_NEW
-        return engine._prefill(model, cfg, enc, ids, splice, S_max)
+        return engine._prefill(model, cfg, enc, ids, splice, S_max,
+                               args.kv_quant)
 
     def decode(state, n):
         cache, last, n_valid, total = state
@@ -130,11 +138,13 @@ def main(argv=None) -> None:
         raise SystemExit(f"decode ran {out.steps} / {out2.steps} steps, not "
                          f"{args.steps} (an eos ended it early)")
     record = {"batch": B, "decode_steps": args.steps,
+              "quantize": args.quantize, "kv_quant": args.kv_quant,
               "device": torch.cuda.get_device_name(0)}
+    leg = f" {args.quantize or 'bf16'}{' kv8' if args.kv_quant else ''}"
     for name, wall, busy, top in (("encode", w_enc, b_enc, k_enc),
                                   ("prefill", w_pre, b_pre, k_pre),
                                   ("decode", w_dec, b_dec, k_dec)):
-        print(f"== B={B} {name}: wall {wall:.3f} ms (no profiler), device "
+        print(f"== B={B}{leg} {name}: wall {wall:.3f} ms (no profiler), device "
               f"busy {busy:.3f} ms (kernel-interval union, profiled run), "
               f"idle share {1 - busy / wall:.3f}", flush=True)
         for kname, ms, n in top:

@@ -6,7 +6,10 @@
 and loads it into the port's model with `load_state_dict(strict=True)`:
 the port's parameter names are the flat keys. Two keys need a fix-up:
 the positional conv's weight norm (`weight_g` / `weight_v`) is fused into
-a plain weight, and HF's [1, H, 1, 1] `gru_rel_pos_const` is squeezed.
+a plain weight, and HF's [1, H, 1, 1] `gru_rel_pos_const` is squeezed. A
+quantized tree (`tree_to_flat(quantize_for_serving(params, ...))`: int8
+`weight_q8a8` / `weight_q8` and f32 `scale` in a linear's slot) loads as
+well: each such slot of the model becomes a `QuantLinear` first.
 
 `init_random` builds a model at full width with random weights from a
 `torch.Generator`, straight on the target device, for runs that have no
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from mtasr_tpu_torch.config import SpeechEncoderDecoderConfig
+from mtasr_tpu_torch.models.layers import QuantLinear
 from mtasr_tpu_torch.models.speech_encoder_decoder import (
     SpeechEncoderDecoderModel,
 )
@@ -46,10 +50,37 @@ def _fuse_weight_norm(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+_QUANT_KEYS = {".weight_q8a8": "w8a8", ".weight_q8": "w8"}
+
+
+def _quantized_slots(model: torch.nn.Module,
+                     flat: Mapping[str, np.ndarray]) -> None:
+    """Make each linear slot that `flat` holds quantized a `QuantLinear` of
+    the same geometry (a tied head's `lm_head` slot is new)."""
+    device = next(model.parameters()).device
+    for key, value in flat.items():
+        for suffix, mode in _QUANT_KEYS.items():
+            if not key.endswith(suffix):
+                continue
+            path = key[:-len(suffix)]
+            parent_path, _, name = path.rpartition(".")
+            parent = model.get_submodule(parent_path)
+            old = getattr(parent, name, None)
+            if old is not None and not isinstance(
+                    old, (torch.nn.Linear, QuantLinear)):
+                raise ValueError(f"{key}: {path} is not a linear layer")
+            bias = flat.get(path + ".bias")
+            out_dim, in_dim = np.shape(value)
+            setattr(parent, name, QuantLinear(
+                in_dim, out_dim, mode, device=device,
+                bias_dtype=None if bias is None else _to_tensor(bias).dtype))
+
+
 def load_flat(model: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     """Load flat numpy parameters into `model` (strict: every key must
-    match a parameter, and every parameter must be given)."""
+    match a parameter or buffer, and every one must be given)."""
     flat = _fuse_weight_norm(flat)
+    _quantized_slots(model, flat)
     state = {}
     for key, value in flat.items():
         if key.endswith("gru_rel_pos_const"):

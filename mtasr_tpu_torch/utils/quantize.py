@@ -1,0 +1,107 @@
+"""Int8 weights for serving (counterpart of `mtasr_tpu/utils/quantize.py`).
+
+Symmetric per-output-row quantization, in float32:
+
+    w_int8[o, i] = round(w[o, i] / s[o]),  s[o] = max(max_i |w[o, i]|, 127e-12) / 127
+
+(`torch.round` rounds half to even, as `jnp.round` does; / 127 is a
+product with `ops.int8.INV127`, as jitted JAX computes it). The model is
+quantized in place: each chosen `nn.Linear` is replaced by a `QuantLinear`
+holding `weight_q8a8` (w8a8: int8 activations too) or `weight_q8` (w8:
+weight only), `scale` and the bias, under the JAX tree's keys, so a
+quantized JAX tree loads into a quantized port model by name
+(`utils/convert.py::load_flat`). `models/layers.py::linear` dispatches on
+the container.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from mtasr_tpu_torch.models.layers import QuantLinear
+from mtasr_tpu_torch.ops.int8 import INV127
+
+MIN_OUT_DIM = 256   # narrower linears stay in their float type
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[out, in] float -> (int8 [out, in], f32 scale [out])."""
+    wf = w.float()
+    scale = wf.abs().amax(1, keepdim=True).clamp_min(127e-12) * INV127
+    wq = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return wq, scale[:, 0]
+
+
+@torch.no_grad()
+def quantize_linear(weight: torch.Tensor, bias, mode: str) -> QuantLinear:
+    out_dim, in_dim = weight.shape
+    q = QuantLinear(in_dim, out_dim, mode,
+                    bias_dtype=None if bias is None else bias.dtype,
+                    device=weight.device)
+    wq, scale = quantize_weight(weight)
+    q.weight_int8.copy_(wq)
+    q.scale.copy_(scale)
+    if bias is not None:
+        q.bias.copy_(bias)
+    return q
+
+
+def _quantize_child(parent: nn.Module, name: str, mode: str) -> None:
+    lin = getattr(parent, name)
+    if isinstance(lin, nn.Linear) and lin.out_features >= MIN_OUT_DIM:
+        setattr(parent, name, quantize_linear(lin.weight, lin.bias, mode))
+
+
+def quantize_tree(module: nn.Module, mode: str) -> None:
+    """Every `nn.Linear` under `module` with at least MIN_OUT_DIM outputs
+    (`quantize_tree`, `quantize.py:52-59`)."""
+    for name, child in list(module.named_children()):
+        if isinstance(child, nn.Linear):
+            _quantize_child(module, name, mode)
+        else:
+            quantize_tree(child, mode)
+
+
+def quantize_decoder_for_serving(model: nn.Module, mode: str) -> None:
+    """The LLaMA layers' attention and MLP linears and the output head; the
+    embedding table stays (gather only). A head tied to the embeddings
+    gets a quantized `lm_head` of its own, whatever its width, so the
+    logits product streams int8 (`quantize.py:129-151`)."""
+    dec = model.decoder
+    for layer in dec.model.layers.values():
+        quantize_tree(layer.self_attn, mode)
+        quantize_tree(layer.mlp, mode)
+    if isinstance(getattr(dec, "lm_head", None), nn.Linear):
+        _quantize_child(dec, "lm_head", mode)
+    elif not hasattr(dec, "lm_head"):
+        dec.lm_head = quantize_linear(dec.model.embed_tokens.weight, None,
+                                      mode)
+
+
+def quantize_encoder_for_serving(model: nn.Module, mode: str) -> None:
+    """The WavLM layers' q/k/v/out projections and feed-forward denses and
+    the feature projection, slot by slot (`quantize.py:91-115`); norms,
+    the rel-pos gate, the convolutions and the adapter stay."""
+    enc = model.encoder
+    for layer in enc.encoder.layers.values():
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _quantize_child(layer.attention, name, mode)
+        quantize_tree(layer.feed_forward, mode)
+    _quantize_child(enc.feature_projection, "projection", mode)
+
+
+def quantize_for_serving(model: nn.Module, mode: str = "w8",
+                         scope: str = "decoder") -> nn.Module:
+    """Quantize the composite model in place and return it. scope
+    "decoder" (the weight-streaming decode loop) or "all" (the encoder's
+    transformer too)."""
+    if mode not in ("w8", "w8a8"):
+        raise ValueError(f"quantize mode {mode!r} not in w8 / w8a8")
+    if scope not in ("decoder", "all"):
+        raise ValueError(f"quantize scope {scope!r} not in decoder / all")
+    quantize_decoder_for_serving(model, mode)
+    if scope == "all":
+        quantize_encoder_for_serving(model, mode)
+    return model

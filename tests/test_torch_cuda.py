@@ -8,7 +8,9 @@ without a CUDA device every test skips. Run on the card with
 (`--noconftest`: tests/conftest.py imports jax, which this file does not
 need). Tolerances: one bf16 rounding of the same f32 math is 1 ulp of the
 largest |ref|; attention rounds p at another point than its plain version,
-so 4 ulps."""
+so 4 ulps; the int8 kernels' products are exact, and `_check_int8` allows
+the one int8 step of p that another order of the softmax's sums can
+flip."""
 import math
 
 import pytest
@@ -95,6 +97,101 @@ def test_decode_kernel(gen, S, hq, hkv, D):
            da.decode_attention_plain(q, kc, vc, mask), 4)
 
 
+def _int8_cache(g, B, S, hkv, D):
+    """K / V drawn in bf16 and quantized by the decoder's own KV quantizer,
+    so the scales sit in the interleaved layout the model writes."""
+    from mtasr_tpu_torch.models.llama import _quantize_kv
+    k8, ks = _quantize_kv(_randn(g, B, S, hkv, D))
+    v8, vs = _quantize_kv(_randn(g, B, S, hkv, D))
+    kvs = torch.stack([ks, vs], -1).reshape(B, S, 2 * hkv).transpose(1, 2)
+    return (k8.reshape(B, S, hkv * D), v8.reshape(B, S, hkv * D),
+            kvs.contiguous())
+
+
+def _check_int8(out, ref, sp, n_ulps=1):
+    """n bf16 ulps at max|ref|, plus, in at most 1 query row in 8, one int8
+    step of p (the two sides summed the softmax in another order and
+    rounded one p / sp to neighbouring integers): 127 * sp of that row.
+    sp [B, Hkv, L, G, 1] from `int8_cache_attention`."""
+    out, ref = out.float(), ref.float()
+    if out.dim() == 3:                      # one token: [B, Hq, D]
+        out = out[:, None]
+    assert out.shape == ref.shape
+    B, L, Hq, D = ref.shape
+    top = float(ref.abs().max())
+    tol = n_ulps * 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
+    step = (127 * sp).permute(0, 2, 1, 3, 4).reshape(B, L, Hq, 1)
+    err = (out - ref).abs()
+    assert bool(torch.isfinite(err).all())
+    assert bool((err <= tol + step).all()), float((err - tol - step).max())
+    assert float((err > tol).any(-1).float().mean()) <= 1 / 8
+
+
+@pytest.mark.parametrize("B,S,hq,hkv,D", [(3, 1000, 32, 8, 64),
+                                          (2, 214, 8, 8, 128),
+                                          (4, 77, 12, 2, 64),
+                                          (1, 5, 4, 1, 64),
+                                          (1, 20000, 32, 8, 64)])
+def test_decode_int8_kernel(gen, B, S, hq, hkv, D):
+    """S = 20000: the scores no longer fit the shared memory and go to the
+    global scratch."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    q = _randn(gen, B, hq, D)
+    k8, v8, kvs = _int8_cache(gen, B, S, hkv, D)
+    mask = torch.rand((B, S), generator=gen, device="cuda") > 0.2
+    mask[-1, S // 3:] = False
+    mask[:, 0] = True
+    before = di.decode_attention_int8.launches
+    out = di.decode_attention_int8(q, k8, v8, kvs, mask)
+    ref, sp = di.int8_cache_attention(q[:, None], k8, v8, kvs, mask[:, None])
+    torch.cuda.synchronize()
+    assert di.decode_attention_int8.launches == before + 1
+    _check_int8(out, ref.to(torch.bfloat16), sp)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,L,S,hq,hkv,D", [(3, 2, 214, 32, 8, 64),
+                                            (2, 16, 300, 8, 1, 64),
+                                            (2, 16, 97, 16, 2, 128),
+                                            (1, 7, 40, 6, 6, 64),
+                                            (2, 16, 1000, 32, 8, 64)])
+def test_chunk_kernel(gen, int8, B, L, S, hq, hkv, D):
+    """S = 1000 at L = 16, G = 4: past the ~810 keys whose scores fit the
+    shared memory, so the scores go to the global scratch."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    q = _randn(gen, B, L, hq, D)
+    mask = torch.ones((B, L, S), dtype=torch.bool, device="cuda")
+    for pos in range(L):                     # causal within the chunk
+        mask[:, pos, S - L + pos + 1:] = False
+    mask[-1, :, S // 3:S - L] = False        # a padded row
+    if int8:
+        k8, v8, kvs = _int8_cache(gen, B, S, hkv, D)
+        out = dc.decode_attention_int8_chunk(q, k8, v8, kvs, mask)
+        ref, sp = di.int8_cache_attention(q, k8, v8, kvs, mask)
+        _check_int8(out, ref.to(torch.bfloat16), sp)
+    else:
+        kc, vc = _randn(gen, B, S, hkv * D), _randn(gen, B, S, hkv * D)
+        _check(dc.decode_attention_chunk(q, kc, vc, mask),
+               dc.decode_attention_chunk_plain(q, kc, vc, mask), 4)
+
+
+def test_int8_linear_small_batch_pads_to_the_int8_gemm(gen):
+    """w8a8 on the card: `torch._int_mm` at M = 8 (padded to 32 rows) and
+    M = 40 gives the CPU's exact int32 products."""
+    from mtasr_tpu_torch.models.layers import linear
+    from mtasr_tpu_torch.utils.quantize import quantize_linear
+    w = _randn(gen, 512, 2048, scale=0.02)
+    q = quantize_linear(w, None, "w8a8")
+    qc = quantize_linear(w.cpu(), None, "w8a8")
+    for M in (8, 40):
+        x = _randn(gen, M, 2048)
+        out = linear(q, x)
+        ref = linear(qc, x.cpu())
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), ref)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     from mtasr_tpu_torch.ops.kernels import conv_frontend as cf
     from mtasr_tpu_torch.ops.kernels import decode_attention as da
@@ -119,3 +216,30 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(TypeError):
         cf.conv0_fused(wave.float().contiguous(), _randn(gen, 64, 1, 10),
                        None, stride=5)
+    from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    k8, v8, kvs = _int8_cache(gen, 1, 5, 2, 64)
+    q = _randn(gen, 1, 4, 64)
+    with pytest.raises(TypeError):                 # bf16 cache to #6
+        di.decode_attention_int8(q, k8.bfloat16(), v8.bfloat16(), kvs, mask)
+    with pytest.raises(TypeError):                 # f32 scales
+        di.decode_attention_int8(q, k8, v8, kvs.float(), mask)
+    with pytest.raises(ValueError):                # D = 66: not 4k
+        di.decode_attention_int8(_randn(gen, 1, 4, 66),
+                                 torch.zeros(1, 5, 132, dtype=torch.int8,
+                                             device="cuda"),
+                                 torch.zeros(1, 5, 132, dtype=torch.int8,
+                                             device="cuda"),
+                                 kvs, mask)
+    qc = _randn(gen, 1, 17, 4, 64)                 # L = 17 > 16
+    mc = torch.ones((1, 17, 5), dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="positions"):
+        dc.decode_attention_int8_chunk(qc, k8, v8, kvs, mc)
+    kc = torch.zeros(1, 5, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="Hq/Hkv"):  # 16 q heads a kv head
+        dc.decode_attention_chunk(_randn(gen, 1, 2, 16, 64), kc, kc,
+                                  mc[:, :2])
+    with pytest.raises(ValueError):                # not contiguous
+        dc.decode_attention_chunk(qc[:, :4].transpose(1, 2).contiguous()
+                                  .transpose(1, 2), k8.bfloat16(),
+                                  v8.bfloat16(), mc[:, :4])

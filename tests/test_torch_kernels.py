@@ -1,5 +1,5 @@
-"""The plain versions of the port's three kernels against the JAX Pallas
-kernels they replace, run in interpret mode on the CPU, and the wrappers'
+"""The plain versions of the port's kernels against the JAX Pallas kernels
+they replace, run in interpret mode on the CPU, and the wrappers'
 dispatch: a CPU tensor takes the plain version (no launch is counted), any
 other non-CUDA device raises. The CUDA kernels themselves are checked on
 the card (tests/test_torch_cuda.py, chip_smoke.py)."""
@@ -15,6 +15,8 @@ from mtasr_tpu.ops.pallas import flash_attention as jfa
 from mtasr_tpu_torch.ops import kernels
 from mtasr_tpu_torch.ops.kernels import conv_frontend as cf
 from mtasr_tpu_torch.ops.kernels import decode_attention as da
+from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
 from mtasr_tpu_torch.ops.kernels import flash_attention as fa
 
 
@@ -47,7 +49,7 @@ def _conv0_inputs(B, S, O=512, K=10, seed=0):
 
 
 def _torch(*arrays):
-    return [torch.from_numpy(a) for a in arrays]
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
 @pytest.mark.parametrize("S,fuse", [(1280, True), (1280, False),
@@ -127,6 +129,98 @@ def test_decode_plain_matches_pallas_kernel(B, S, hq, hkv, D, pallas_calls):
                                rtol=1e-5)
 
 
+def _int8_cache(B, S, hkv, D, seed):
+    """Random int8 K / V and bf16 scales, the k and v rows of every head
+    different, so that reading them in the wrong layout shows."""
+    rng = np.random.default_rng(seed)
+    k8 = rng.integers(-127, 128, (B, S, hkv * D)).astype(np.int8)
+    v8 = rng.integers(-127, 128, (B, S, hkv * D)).astype(np.int8)
+    kvs = rng.uniform(0.002, 0.03, (B, 2 * hkv, S)).astype(np.float32)
+    kvs = np.asarray(jnp.asarray(kvs, jnp.bfloat16).astype(jnp.float32))
+    return k8, v8, kvs
+
+
+def _bf16(a):
+    return torch.tensor(a).to(torch.bfloat16)   # exact: a is bf16-valued
+
+
+def _assert_int8_close(out, ref, q, k8, v8, kvs, mask):
+    """Within 2e-6 + 1e-5 |ref| (the f32 softmax's order of sums), except
+    where the two sides rounded one p of a query row to neighbouring int8
+    steps: that moves the row's elements by up to 127 * sp (sp the row's p
+    scale), and may happen in at most 1 row in 8."""
+    _, sp = di.int8_cache_attention(*_torch(q, k8, v8), _bf16(kvs),
+                                    torch.from_numpy(mask))
+    B, L, Hq, _ = q.shape
+    step = (127 * sp).permute(0, 2, 1, 3, 4).reshape(B, L, Hq, 1).numpy()
+    out, ref = out.reshape(q.shape), np.asarray(ref).reshape(q.shape)
+    err = np.abs(out - ref) - 1e-5 * np.abs(ref)
+    assert (err <= 2e-6 + step).all()
+    flipped = (err > 2e-6).any(-1)
+    assert flipped.mean() <= 1 / 8, flipped.mean()
+
+
+@pytest.mark.parametrize("B,S,hq,hkv,D", [(2, 37, 8, 2, 64),
+                                          (3, 214, 32, 8, 64),
+                                          (2, 50, 4, 4, 32)])
+def test_decode_int8_plain_matches_pallas_kernel(B, S, hq, hkv, D,
+                                                 pallas_calls):
+    """#6 over an int8 cache with interleaved k / v scale rows, GQA and a
+    masked tail (f32; tolerance `_assert_int8_close`)."""
+    q = _rand((B, hq, D), 21)
+    k8, v8, kvs = _int8_cache(B, S, hkv, D, 22)
+    mask = np.ones((B, S), bool)
+    mask[-1, S // 2:] = False
+    mask[0, 3] = False
+    ref = jda.decode_attention_int8(
+        jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8),
+        jnp.asarray(kvs, jnp.bfloat16), jnp.asarray(mask), interpret=True)
+    assert pallas_calls["n"] > 0
+    out = di.decode_attention_int8(*_torch(q, k8, v8), _bf16(kvs),
+                                   torch.from_numpy(mask))
+    _assert_int8_close(out.numpy(), ref, q[:, None], k8, v8, kvs,
+                       mask[:, None])
+
+
+def _chunk_mask(B, L, S):
+    """Position l sees the slots up to S - L + l (a chunk written at the
+    cache's end), and row 1 has a padded slot."""
+    mask = np.zeros((B, L, S), bool)
+    for pos in range(L):
+        mask[:, pos, :S - L + pos + 1] = True
+    mask[1, :, 7] = False
+    return mask
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("L,hq,hkv", [(2, 8, 2), (5, 4, 4), (16, 8, 2)])
+def test_chunk_plain_matches_pallas_kernel(L, hq, hkv, int8, pallas_calls):
+    """#5 (bf16 cache) and #7 (int8 cache) over an L-token chunk with a
+    [B, L, S] mask, GQA or not: f32, atol 2e-6 / rtol 1e-5 (the f32
+    softmax's order of sums), for #7 as `_assert_int8_close` says."""
+    B, S, D = 2, 40, 64
+    q = _rand((B, L, hq, D), 23)
+    mask = _chunk_mask(B, L, S)
+    if int8:
+        k8, v8, kvs = _int8_cache(B, S, hkv, D, 24)
+        ref = jda.decode_attention_int8_chunk(
+            jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8),
+            jnp.asarray(kvs, jnp.bfloat16), jnp.asarray(mask),
+            interpret=True)
+        out = dc.decode_attention_int8_chunk(*_torch(q, k8, v8), _bf16(kvs),
+                                             torch.from_numpy(mask))
+        assert pallas_calls["n"] > 0
+        _assert_int8_close(out.numpy(), ref, q, k8, v8, kvs, mask)
+    else:
+        kc, vc = _rand((B, S, hkv * D), 25), _rand((B, S, hkv * D), 26)
+        ref = jda.decode_attention_chunk(*map(jnp.asarray, (q, kc, vc, mask)),
+                                         interpret=True)
+        out = dc.decode_attention_chunk(*_torch(q, kc, vc, mask))
+        assert pallas_calls["n"] > 0
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6,
+                                   rtol=1e-5)
+
+
 def test_cpu_tensors_take_the_plain_versions_without_counting():
     kernels.reset_launch_counts()
     wave, w, b, g, bt = _torch(*_conv0_inputs(1, 200, O=64))
@@ -142,9 +236,20 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     np.testing.assert_array_equal(
         da.decode_attention(qd, kc, kc, m).numpy(),
         da.decode_attention_plain(qd, kc, kc, m).numpy())
-    assert kernels.launch_counts() == {"conv0_fused": 0,
-                                       "flash_attention": 0,
-                                       "decode_attention": 0}
+    k8 = torch.ones((1, 5, 16), dtype=torch.int8)
+    kvs = torch.ones((1, 4, 5), dtype=torch.bfloat16)
+    np.testing.assert_array_equal(
+        di.decode_attention_int8(qd, k8, k8, kvs, m).numpy(),
+        di.decode_attention_int8_plain(qd, k8, k8, kvs, m).numpy())
+    qc, mc = qd[:, None].expand(1, 3, 4, 8).contiguous(), m.expand(1, 3, 5)
+    np.testing.assert_array_equal(
+        dc.decode_attention_chunk(qc, kc, kc, mc).numpy(),
+        dc.decode_attention_chunk_plain(qc, kc, kc, mc).numpy())
+    np.testing.assert_array_equal(
+        dc.decode_attention_int8_chunk(qc, k8, k8, kvs, mc).numpy(),
+        dc.decode_attention_int8_chunk_plain(qc, k8, k8, kvs, mc).numpy())
+    assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
+    assert len(kernels.WRAPPERS) == 6
 
 
 def test_wrappers_refuse_other_devices_and_bad_shapes():
@@ -173,3 +278,26 @@ def test_wrappers_refuse_other_devices_and_bad_shapes():
         da.decode_attention(torch.zeros(1, 4, 8), torch.zeros(1, 5, 16),
                             torch.zeros(1, 5, 16),
                             torch.ones((1, 6), dtype=torch.bool))
+    meta_k8 = torch.empty((1, 5, 16), dtype=torch.int8, device="meta")
+    meta_s = torch.empty((1, 4, 5), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        di.decode_attention_int8(torch.empty((1, 4, 8), device="meta"),
+                                 meta_k8, meta_k8, meta_s,
+                                 torch.ones((1, 5), dtype=torch.bool,
+                                            device="meta"))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        dc.decode_attention_chunk(
+            torch.empty((1, 2, 4, 8), device="meta"),
+            torch.empty((1, 5, 16), device="meta"),
+            torch.empty((1, 5, 16), device="meta"),
+            torch.ones((1, 2, 5), dtype=torch.bool, device="meta"))
+    k8 = torch.zeros((1, 5, 16), dtype=torch.int8)
+    with pytest.raises(ValueError, match="kv_scale"):      # [B, Hkv, S]
+        di.decode_attention_int8(torch.zeros(1, 4, 8), k8, k8,
+                                 torch.zeros(1, 2, 5, dtype=torch.bfloat16),
+                                 torch.ones((1, 5), dtype=torch.bool))
+    with pytest.raises(ValueError, match="mask"):          # [B, S] for L=2
+        dc.decode_attention_int8_chunk(
+            torch.zeros(1, 2, 4, 8), k8, k8,
+            torch.zeros(1, 4, 5, dtype=torch.bfloat16),
+            torch.ones((1, 5), dtype=torch.bool))

@@ -150,11 +150,9 @@ def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpeechEncoderDecoderModel(_port(tiny_cfg(train_mode="hybrid",
                                                  talker_ctc=True)))
-    cfg = tt.cfg
-    w = torch.zeros(1, 4000)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.generate(tt.model, cfg, w, None,
-                        gen=tconfig.GenerationConfig(kv_quant=True))
+        engine.generate(tt.model, tt.cfg, torch.zeros(1, 4000), None,
+                        gen=tconfig.GenerationConfig(speculative="ctc"))
 
 
 def test_prompt_layout_refuses_heterogeneous_batch():
