@@ -32,11 +32,28 @@ Phases, one line each, any failure exits non-zero:
    kernel (#6), the breakdown and the RTFx beside bf16's; the int8 logits
    against bf16's; the decoder's int8 kernels against their plain versions
    (prefill and 8 decode steps, the encoder's kernels on both sides); the
-   short-prefill request of phase 6 through the int8 chunk kernel (#7).
+   short-prefill request of phase 6 through the int8 chunk kernel (#7);
+8. train kernels: the flash backward kernels #8-#10 against
+   `flash_attention_bwd_plain` at the training path's shapes (B = 16,
+   T = S = 499, 16 heads of 64, one short row), beside the yardstick
+   `torch.autograd.grad` of SDPA with the materialised float bias;
+9. train: WavLM-Large + LLaMA-3.2-1B from seed 0 with the reference
+   recipe's trainability (decoder frozen with LoRA r 16 / alpha 32 on
+   q/k/v/o, the encoder training but its conv feature extractor,
+   enc_to_dec_proj, masked AdamW with linear warmup 2) through `Trainer`:
+   the encoder's gradients with kernels against the plain versions on one
+   deterministic step, then one untimed step and TRAIN_STEPS timed ones on
+   a fixed batch of 16 x 10 s (SpecAugment 0.05, default dropouts), with
+   the launch counts, samples/s, ms/step, peak memory and a falling loss.
 
-The line before the last is the kernels' JSON record; the last line is
-`{"ok": true, "device": {...}}`. Imports nothing of JAX or of the JAX
-package `mtasr_tpu`: both are blocked before anything is imported.
+Every kernel's record carries its error, its time, its plain version's
+time, the least time the card could take (`bound_ms`, from the bytes the
+function must move and the operations it must do at the H100's published
+peaks) and, where one PyTorch call computes the same function, that call's
+time (`library_ms`; the port never calls it). The line before the last is
+the kernels' JSON record; the last line is `{"ok": true, "device":
+{...}}`. Imports nothing of JAX or of the JAX package `mtasr_tpu`: both
+are blocked before anything is imported.
 """
 from __future__ import annotations
 
@@ -45,6 +62,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 SR = 16000
@@ -59,6 +77,23 @@ LOGITS_TOL = 0.05     # rel-L2 of bf16 logits, kernels vs plain versions
 # #7 ignoring its mask 0.146 and 1.08 at the worst step
 LOGITS_TOL_INT8 = 0.02
 SHORT_S = (0.8, 1.0)  # short-prefill waveforms, in a 1 s bucket
+TRAIN_BATCH = 16
+TRAIN_STEPS = 5       # timed steps, after one untimed
+TRAIN_LR = 1e-4       # the JAX bench's training learning rate
+# rel-L2 of the trainable encoder gradients, kernels vs plain versions,
+# over all of them at once (one deterministic step): 2x the 0.0072-0.0074
+# that sound kernels read at full width; #9 with p 1 % high read 0.0186
+# (PERF.md, Findings)
+GRAD_TOL = 0.015
+# the backward kernels against their plain version, in bf16 ulps at
+# max|ref|: sound kernels read at most 0.5 at the training shapes, #9 with
+# p 1 % high 3 (PERF.md, Findings)
+BWD_ULPS = 2
+
+# H100 SXM published peaks (dense): bf16 tensor cores, int8 tensor cores,
+# f32 outside the tensor cores; HBM bandwidth
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM_BYTES_S = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -113,14 +148,23 @@ def cuda_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
     return sorted(runs)[repeats // 2]
 
 
-def compare(torch, card, records, name, source, replaces, run_kernel,
-            run_plain, n_ulps, step=0.0, why="", record=True):
-    """Within n bf16 ulps at max|ref|, plus `step` (the int8 kernels: one
-    int8 step of p, which another order of the softmax's sums may round the
-    other way). With `record`, the error and both times go into `records`
-    (the first call of a name is kept). Returns the error."""
-    out = run_kernel()
-    ref = run_plain()
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes: float, n_ops: float, kind: str):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the operations over the peak rate of their type."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_S
+    t_ops = 1e3 * n_ops / PEAK_OPS[kind]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_err(torch, name, out, ref, n_ulps, step=0.0):
+    """max |out - ref|, failing past n bf16 ulps at max|ref| plus `step`
+    (the int8 kernels: one int8 step of p, which another order of the
+    softmax's sums may round the other way). Returns (err, tol)."""
     torch.cuda.synchronize()
     if out.shape != ref.shape:
         fail(f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
@@ -129,18 +173,55 @@ def compare(torch, card, records, name, source, replaces, run_kernel,
     if not math.isfinite(err) or err > tol:
         fail(f"{name}: max_abs_err {err} over tolerance {tol} at shape "
              f"{tuple(out.shape)}")
-    if record and name not in records:
-        ms, plain_ms = cuda_ms(torch, run_kernel), cuda_ms(torch, run_plain)
-        say(f"kernel {name}: max_abs_err {err:.6g} (tol {tol:.6g} = "
-            f"{n_ulps} bf16 ulp at max|ref|{why}) kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms shape {tuple(out.shape)} [{card}]")
-        records[name] = {"name": name, "route": "cuda", "source": source,
-                         "replaces": replaces, "max_abs_err": err, "ms": ms,
-                         "plain_ms": plain_ms}
+    return err, tol
+
+
+def record(torch, card, records, name, source, replaces, err, why,
+           run_kernel, run_plain, bound_ms, library=None, shape=()):
+    """Time the kernel, its plain version and the library call (median of
+    5), and keep the record of `name` (the first one)."""
+    ms, plain_ms = cuda_ms(torch, run_kernel), cuda_ms(torch, run_plain)
+    lib_ms = None if library is None else cuda_ms(torch, library)
+    say(f"kernel {name}: max_abs_err {err:.6g} ({why}) kernel {ms:.4f} ms "
+        f"plain {plain_ms:.4f} ms library "
+        f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} bound "
+        f"{bound_ms[0]:.4f} ms ({bound_ms[1]}) shape {shape} [{card}]")
+    records[name] = {"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms[0],
+                     "bound_by": bound_ms[1], "library_ms": lib_ms}
+
+
+def compare(torch, card, records, name, source, replaces, run_kernel,
+            run_plain, n_ulps, step=0.0, why="", keep=True, bound_ms=None,
+            library=None):
+    """Within n bf16 ulps at max|ref|, plus `step`. With `keep`, the error,
+    the times and `bound_ms` go into `records` (the first call of a name
+    is kept). Returns the error."""
+    out = run_kernel()
+    err, tol = check_err(torch, name, out, run_plain(), n_ulps, step)
+    if keep and name not in records:
+        record(torch, card, records, name, source, replaces, err,
+               f"tol {tol:.6g} = {n_ulps} bf16 ulp at max|ref|{why}",
+               run_kernel, run_plain, bound_ms, library, tuple(out.shape))
     else:
         say(f"kernel {name}: max_abs_err {err:.6g} (tol {tol:.6g}) shape "
             f"{tuple(out.shape)}")
     return err
+
+
+def sdpa_bias(torch, pos_bias, gate, kv_lens, S):
+    """The gated bias [B, H, T, S] materialised in bf16, -inf past
+    kv_len: what SDPA needs to compute the flash kernels' function."""
+    valid = torch.arange(S, device=gate.device)[None] < kv_lens[:, None]
+    bias = gate[..., None].float() * pos_bias[None].float()
+    return bias.masked_fill(~valid[:, None, None, :], float("-inf")) \
+        .to(torch.bfloat16)
+
+
+def attention_ops(D, n_query_key_pairs):
+    """q.k and p.v of every (query, head, valid key): 4 D operations."""
+    return 4 * D * n_query_key_pairs
 
 
 INT8_WHY = " + one int8 step of p, 127 * max sp"
@@ -160,6 +241,7 @@ def kernel_phase(torch, card: str, records):
     """Each kernel against its plain version at the served paths' shapes;
     the chunk kernels also at L = 8 and 16 over a full cache (the short
     prefill's own inputs are held in `captured_phase`)."""
+    import torch.nn.functional as F
     from mtasr_tpu_torch.models.llama import _quantize_kv
     from mtasr_tpu_torch.ops.kernels import conv_frontend as cf
     from mtasr_tpu_torch.ops.kernels import decode_attention as da
@@ -183,10 +265,13 @@ def kernel_phase(torch, card: str, records):
     w = randn(512, 1, 10, scale=10 ** -0.5)
     b, gm, bt = randn(512, scale=0.02), 1 + randn(512, scale=0.1), \
         randn(512, scale=0.05)
+    T0 = (S - 10) // 5 + 1
     check("conv0_fused", "mtasr_tpu_torch/csrc/conv_frontend.cu",
           "mtasr_tpu/ops/pallas/conv_frontend.py:172",
           lambda: cf.conv0_fused(wave, w, b, gm, bt, stride=5),
-          lambda: cf.conv0_plain(wave, w, b, gm, bt, stride=5), 1)
+          lambda: cf.conv0_plain(wave, w, b, gm, bt, stride=5), 1,
+          bound_ms=bound(nbytes(wave, w, b, gm, bt) + BATCH * T0 * 512 * 2,
+                         2 * BATCH * T0 * 512 * 10, "f32"))
 
     # encoder attention: T = S = 499 frames, 16 heads of 64, one short row
     T, H, D = 499, 16, 64
@@ -196,13 +281,19 @@ def kernel_phase(torch, card: str, records):
     gate = (1 + torch.rand((BATCH, H, T), generator=g, device=dev)).to(bf)
     kv_lens = torch.full((BATCH,), T, dtype=torch.int32, device=dev)
     kv_lens[-1] = 300
+    bias = sdpa_bias(torch, pos_bias, gate, kv_lens, T)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     check("flash_attention", "mtasr_tpu_torch/csrc/flash_attention.cu",
           "mtasr_tpu/ops/pallas/flash_attention.py:266",
           lambda: fa.flash_attention(q, k, v, kv_lens=kv_lens,
                                      pos_bias=pos_bias, gate=gate),
           lambda: fa.flash_attention_plain(q, k, v, kv_lens=kv_lens,
                                            pos_bias=pos_bias, gate=gate),
-          4)
+          4, bound_ms=bound(
+              nbytes(q, k, v, pos_bias, gate, kv_lens, q),
+              attention_ops(D, H * T * int(kv_lens.sum())), "bf16"),
+          library=lambda: F.scaled_dot_product_attention(
+              qh, kh, vh, attn_mask=bias))
 
     # decode step: LLaMA-1B heads, S_max = 1 + 63 + 150 = 214, one short row
     Hq, Hkv, S_max = 32, 8, 214
@@ -210,10 +301,17 @@ def kernel_phase(torch, card: str, records):
     kc, vc = randn(BATCH, S_max, Hkv * D), randn(BATCH, S_max, Hkv * D)
     mask = torch.ones((BATCH, S_max), dtype=torch.bool, device=dev)
     mask[-1, 150:] = False
+    kch, vch = (t.view(BATCH, S_max, Hkv, D).transpose(1, 2)
+                for t in (kc, vc))
     check("decode_attention", "mtasr_tpu_torch/csrc/decode_attention.cu",
           "mtasr_tpu/ops/pallas/decode_attention.py:117",
           lambda: da.decode_attention(qd, kc, vc, mask),
-          lambda: da.decode_attention_plain(qd, kc, vc, mask), 4)
+          lambda: da.decode_attention_plain(qd, kc, vc, mask), 4,
+          bound_ms=bound(nbytes(qd, kc, vc, mask, qd),
+                         attention_ops(D, Hq * int(mask.sum())), "bf16"),
+          library=lambda: F.scaled_dot_product_attention(
+              qd[:, :, None], kch, vch, attn_mask=mask[:, None, None],
+              enable_gqa=True))
 
     # the int8 cache of the same K / V, quantized as the decoder writes it
     # (k / v scale rows interleaved per kv head)
@@ -227,7 +325,9 @@ def kernel_phase(torch, card: str, records):
           "mtasr_tpu/ops/pallas/decode_attention.py:354",
           lambda: di.decode_attention_int8(qd, k8, v8, kvs, mask),
           lambda: di.decode_attention_int8_plain(qd, k8, v8, kvs, mask), 1,
-          p_step(di, qd[:, None], k8, v8, kvs, mask[:, None]), INT8_WHY)
+          p_step(di, qd[:, None], k8, v8, kvs, mask[:, None]), INT8_WHY,
+          bound_ms=bound(nbytes(qd, k8, v8, kvs, mask, qd),
+                         attention_ops(D, Hq * int(mask.sum())), "int8"))
 
     # chunks of L positions at the end of a full cache, causal
     for L in (8, 16):
@@ -239,13 +339,13 @@ def kernel_phase(torch, card: str, records):
               "mtasr_tpu/ops/pallas/decode_attention.py:223",
               lambda: dc.decode_attention_chunk(qc, kc, vc, mc),
               lambda: dc.decode_attention_chunk_plain(qc, kc, vc, mc), 4,
-              record=False)
+              keep=False)
         check("decode_attention_int8_chunk", CHUNK_SOURCE,
               "mtasr_tpu/ops/pallas/decode_attention.py:443",
               lambda: dc.decode_attention_int8_chunk(qc, k8, v8, kvs, mc),
               lambda: dc.decode_attention_int8_chunk_plain(qc, k8, v8, kvs,
                                                            mc),
-              1, p_step(di, qc, k8, v8, kvs, mc), INT8_WHY, record=False)
+              1, p_step(di, qc, k8, v8, kvs, mc), INT8_WHY, keep=False)
 
 
 def captured_phase(torch, card: str, records, calls) -> None:
@@ -256,14 +356,26 @@ def captured_phase(torch, card: str, records, calls) -> None:
     from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
     if not calls:
         fail("the short prefill made no chunk-kernel call to check")
+    import torch.nn.functional as F
     for name, args in calls:
+        q = args[0]
+        B, L, Hq, D = q.shape
+        mc = args[-1]
+        ops = attention_ops(D, Hq * int(mc.sum()))
         if name == "decode_attention_chunk":
             q, kc, vc, mc = args
+            S_max, Hkv = kc.shape[1], kc.shape[2] // D
+            kch, vch = (t.view(B, S_max, Hkv, D).transpose(1, 2)
+                        for t in (kc, vc))
             err = compare(
                 torch, card, records, name, CHUNK_SOURCE,
                 "mtasr_tpu/ops/pallas/decode_attention.py:223",
                 lambda: dc.decode_attention_chunk(q, kc, vc, mc),
-                lambda: dc.decode_attention_chunk_plain(q, kc, vc, mc), 4)
+                lambda: dc.decode_attention_chunk_plain(q, kc, vc, mc), 4,
+                bound_ms=bound(nbytes(q, kc, vc, mc, q), ops, "bf16"),
+                library=lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kch, vch, attn_mask=mc[:, None],
+                    enable_gqa=True))
         else:
             q, k8, v8, kvs, mc = args
             err = compare(
@@ -272,7 +384,8 @@ def captured_phase(torch, card: str, records, calls) -> None:
                 lambda: dc.decode_attention_int8_chunk(q, k8, v8, kvs, mc),
                 lambda: dc.decode_attention_int8_chunk_plain(q, k8, v8, kvs,
                                                              mc),
-                1, p_step(di, q, k8, v8, kvs, mc), INT8_WHY)
+                1, p_step(di, q, k8, v8, kvs, mc), INT8_WHY,
+                bound_ms=bound(nbytes(q, k8, v8, kvs, mc, q), ops, "int8"))
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
                                            err)
     say(f"captured: {len(calls)} chunk-kernel calls of the served short "
@@ -551,6 +664,224 @@ def short_prefill_phase(torch, card: str, cfg, transcriber, records,
     torch.cuda.synchronize()
 
 
+BWD_SOURCE = "mtasr_tpu_torch/csrc/flash_attention_bwd.cu"
+BWD_REPLACES = {"flash_attention_bwd_dq":
+                "mtasr_tpu/ops/pallas/flash_attention.py:640",
+                "flash_attention_bwd_dkv":
+                "mtasr_tpu/ops/pallas/flash_attention.py:664",
+                "flash_attention_bwd_dpb":
+                "mtasr_tpu/ops/pallas/flash_attention.py:711"}
+
+
+def train_kernel_phase(torch, card: str, records) -> None:
+    """#8, #9 and #10 against `flash_attention_bwd_plain` at the training
+    path's shapes (B = 16, T = S = 499, 16 heads of 64, a gated bias, one
+    row of 300 keys), fed the same forward output and lse; the forward
+    kernel and its lse at B = 16 as well. Beside them the yardstick: one
+    `torch.autograd.grad` of SDPA (forward and backward) with the gated
+    bias materialised [B, H, T, S] in bf16, which gives dq, dk, dv and the
+    whole bias gradient."""
+    import torch.nn.functional as F
+
+    from mtasr_tpu_torch.ops.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 3)
+    bf = torch.bfloat16
+    B, T, H, D = TRAIN_BATCH, 499, 16, 64
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(bf)
+
+    q, k, v, dout = (randn(B, T, H, D) for _ in range(4))
+    pos_bias = randn(H, T, T, scale=0.5)
+    gate = (1 + torch.rand((B, H, T), generator=g, device="cuda")).to(bf)
+    kv_lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    kv_lens[-1] = 300
+    kw = dict(kv_lens=kv_lens, pos_bias=pos_bias, gate=gate)
+    out_k, lse_k = fa._forward(q, k, v, kv_lens, pos_bias, gate, D ** -0.5,
+                               True)
+    out = fa.flash_attention_plain(q, k, v, **kw)
+    lse = fa.flash_attention_lse_plain(q, k, kv_lens, pos_bias, gate)
+    err, tol = check_err(torch, "flash_attention", out_k, out, 4)
+    say(f"kernel flash_attention (train shape): max_abs_err {err:.6g} (tol "
+        f"{tol:.6g}), lse max_abs_err "
+        f"{float((lse_k - lse).abs().max()):.6g} shape {tuple(out.shape)}")
+    args = (q, k, v, kv_lens, pos_bias, gate, out, lse, dout)
+    delta = fa._delta(dout, out)
+    ref = fa.flash_attention_bwd_plain(*args)
+    dq, dg = fa.flash_attention_bwd_dq(*args, delta=delta)
+    dk, dv = fa.flash_attention_bwd_dkv(*args, delta=delta)
+    dpb = fa.flash_attention_bwd_dpb(*args, delta=delta)
+    errs = {name: check_err(torch, name, got, want, BWD_ULPS)
+            for name, got, want in (("dq", dq, ref[0]), ("dk", dk, ref[1]),
+                                    ("dv", dv, ref[2]), ("dpb", dpb, ref[3]),
+                                    ("dg", dg, ref[4]))}
+    say("kernel flash backward vs plain: " + ", ".join(
+        f"{n} {e:.6g} (tol {t:.6g})" for n, (e, t) in errs.items())
+        + f" ({BWD_ULPS} bf16 ulps at max|ref|)")
+
+    # the yardstick: SDPA forward + backward with the bias materialised
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    bias = sdpa_bias(torch, pos_bias, gate, kv_lens, T).requires_grad_(True)
+    dout_h = dout.transpose(1, 2)
+
+    def library():
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+        return torch.autograd.grad(o, leaves + [bias], dout_h)
+
+    n_keys = H * T * int(kv_lens.sum())      # valid (query, head, key)
+    in_bytes = nbytes(q, k, v, pos_bias, gate, kv_lens, lse, delta, dout)
+    plain = lambda: fa.flash_attention_bwd_plain(*args)  # noqa: E731
+    for name, kern, n_ops, out_bytes, e in (
+            ("flash_attention_bwd_dq",
+             lambda: fa.flash_attention_bwd_dq(*args, delta=delta),
+             6 * D * n_keys, nbytes(dq, dg), max(errs["dq"][0],
+                                                 errs["dg"][0])),
+            ("flash_attention_bwd_dkv",
+             lambda: fa.flash_attention_bwd_dkv(*args, delta=delta),
+             8 * D * n_keys, nbytes(dk, dv), max(errs["dk"][0],
+                                                 errs["dv"][0])),
+            ("flash_attention_bwd_dpb",
+             lambda: fa.flash_attention_bwd_dpb(*args, delta=delta),
+             4 * D * n_keys, nbytes(dpb), errs["dpb"][0])):
+        record(torch, card, records, name, BWD_SOURCE, BWD_REPLACES[name],
+               e, f"tol {BWD_ULPS} bf16 ulps at max|ref| each; plain = all "
+               "five gradients",
+               kern, plain, bound(in_bytes + out_bytes, n_ops, "bf16"),
+               library, (B, T, H, D))
+    del leaves, bias
+    torch.cuda.synchronize()
+
+
+def encoder_grads(torch, cfg, model, t, plain: bool):
+    """(loss, {name: f32 gradient}) of the trainable encoder parameters
+    for one deterministic step (no dropout, the batch's SpecAugment mask),
+    with the kernels or their plain versions; launch counts (before,
+    after)."""
+    from mtasr_tpu_torch.models.speech_encoder_decoder import model_forward
+    from mtasr_tpu_torch.ops import kernels
+    model.zero_grad(set_to_none=True)
+    n0 = kernels.launch_counts()
+    with plain_versions(plain):
+        out = model_forward(model, cfg, t["input_values"], t["audio_mask"],
+                            t["decoder_input_ids"], splice_index=1,
+                            ce_labels=t["ce_labels"],
+                            mask_time_indices=t["mask_time_indices"],
+                            deterministic=True)
+        out.loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()
+             if n.startswith("encoder.") and p.requires_grad}
+    missing = [n for n, p in model.named_parameters()
+               if n.startswith("encoder.") and p.requires_grad
+               and p.grad is None]
+    model.zero_grad(set_to_none=True)
+    return float(out.loss.detach()), grads, missing, \
+        (n0, kernels.launch_counts())
+
+
+def train_phase(torch, card: str, launches) -> None:
+    """Full-width attention-mode training through `Trainer` (see the
+    module's docstring, phase 9). Fails on a non-finite loss, a last loss
+    on the fixed batch not below the first, launch counts other than one
+    conv0 and 24 of each flash kernel a step, encoder gradients (kernels
+    vs plain) over GRAD_TOL, or an encoder attention parameter without a
+    gradient."""
+    import numpy as np
+
+    from mtasr_tpu_torch.config import DataConfig, TrainingConfig
+    from mtasr_tpu_torch.ops import kernels
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.train.freeze import freeze_summary
+    from mtasr_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    cfg, model = full_width.build_train(SEED, "cuda", torch.bfloat16)
+    batch = full_width.train_batch(cfg, TRAIN_BATCH, AUDIO_S, SEED)
+    out_dir = tempfile.mkdtemp(prefix="train_smoke_")
+    tc = TrainingConfig(output_dir=out_dir, learning_rate=TRAIN_LR,
+                        warmup_steps=2, max_steps=1000, logging_steps=1,
+                        pcgrad=False)
+    trainer = Trainer(cfg, tc, DataConfig(), model,
+                      freeze_kwargs=dict(freeze_decoder=True))
+    summ = freeze_summary(model, trainer.mask)
+    torch.cuda.synchronize()
+    say(f"train: WavLM-Large + LLaMA-3.2-1B bf16 (+ LoRA r 16 f32), "
+        f"{summ['trainable']} of {summ['total']} parameters train, batch "
+        f"{TRAIN_BATCH} x {AUDIO_S} s, labels "
+        f"{batch.arrays['ce_labels'].shape}"
+        f", SpecAugment frames {int(batch.arrays['mask_time_indices'].sum())}"
+        f", built {time.perf_counter() - t0:.2f} s")
+
+    t = trainer._tensors(batch)
+    loss_k, gk, missing, (a0, a1) = encoder_grads(torch, cfg, model, t, False)
+    loss_p, gp, _, (b0, b1) = encoder_grads(torch, cfg, model, t, True)
+    L_enc = cfg.encoder.num_hidden_layers
+    bwd = [n for n in kernels.WRAPPERS if n.startswith("flash_attention")]
+    if any(a1[n] - a0[n] != L_enc for n in bwd) or \
+            any(b1[n] != b0[n] for n in bwd):
+        fail(f"gradient check took the wrong route: {a0} -> {a1} -> {b1}")
+    num = math.sqrt(sum(float((gk[n] - gp[n]).pow(2).sum()) for n in gk))
+    den = math.sqrt(sum(float(gp[n].pow(2).sum()) for n in gp))
+    rel = num / den
+    # a key bias shifts every score of a query by one constant, which the
+    # softmax removes: its gradient is 0 but for rounding, and is left out
+    # of the per-tensor report and of the no-gradient check
+    per = sorted(((float((gk[n] - gp[n]).norm() / gp[n].norm()), n)
+                  for n in gk if float(gp[n].norm()) > 0
+                  and not n.endswith("k_proj.bias")), reverse=True)
+    attn = [n for n in gk if ".attention." in n
+            and not n.endswith("k_proj.bias")]
+    dead = [n for n in attn if not bool(gk[n].abs().max() > 0)]
+    say(f"train: encoder gradients kernels vs plain, one deterministic step:"
+        f" loss {loss_k:.6f} vs {loss_p:.6f}, rel_l2 {rel:.5g} over "
+        f"{len(gk)} tensors (tol {GRAD_TOL}), worst tensors "
+        f"{[(n, round(r, 5)) for r, n in per[:3]]}; {len(attn)} attention "
+        f"tensors, none without a gradient: {not missing and not dead}")
+    if missing or dead:
+        fail(f"encoder parameters without a gradient: {missing + dead}")
+    if not math.isfinite(rel) or rel > GRAD_TOL:
+        fail(f"encoder gradients rel_l2 {rel} over {GRAD_TOL}")
+    del gk, gp
+
+    t0 = time.perf_counter()
+    trainer.train(lambda: [batch], max_steps=1)       # untimed first step
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train(lambda: [batch] * TRAIN_STEPS, max_steps=1 + TRAIN_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = dict.fromkeys(kernels.WRAPPERS, 0)
+    expect["conv0_fused"] = TRAIN_STEPS
+    for n in bwd:
+        expect[n] = L_enc * TRAIN_STEPS
+    for name, n in counts.items():
+        launches[name] += n
+    losses = [m["loss"] for m in trainer.metrics_log]
+    say(f"train: {TRAIN_STEPS} timed steps after 1 untimed ({first_s:.3f} "
+        f"s): {1e3 * dt / TRAIN_STEPS:.2f} ms/step, "
+        f"{TRAIN_BATCH * TRAIN_STEPS / dt:.3f} samples/s, peak memory "
+        f"{peak:.2f} GiB (max_memory_allocated), launches {counts} "
+        f"B={TRAIN_BATCH} [{card}]")
+    say(f"train: losses {[round(x, 5) for x in losses]}, grad norms "
+        f"{[round(m['grad_norm'], 4) for m in trainer.metrics_log]}")
+    if counts != expect:
+        fail(f"train launch counts {counts} != expected {expect}")
+    if not all(np.isfinite(losses)) or len(losses) != 1 + TRAIN_STEPS:
+        fail(f"train losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall on the fixed batch: {losses}")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     # the port stands alone: importing JAX or the JAX package now fails
     sys.modules["jax"] = None
@@ -645,6 +976,12 @@ def main() -> None:
     logits_phase(torch, cfg8, model8, tr8, requests[-1], "int8")
     torch.cuda.synchronize()
     short_prefill_phase(torch, card, cfg8, tr8, records, launches, "int8")
+
+    # -- training: the flash backward kernels, then Trainer at full width
+    train_kernel_phase(torch, card, records)
+    del model, transcriber, model8, tr8
+    torch.cuda.empty_cache()
+    train_phase(torch, card, launches)
 
     records = list(records.values())
     for r in records:

@@ -125,4 +125,5 @@ class Transcriber:
 
     def transcribe_ctc(self, audio, **kw) -> List[List[str]]:
         raise NotImplementedError("the one-shot CTC path is not ported yet "
-                                  "(ROADMAP.md queue 1, item 10)")
+                                  "(ROADMAP.md queue 1, item 11b: it comes "
+                                  "with the separator and the CTC heads)")

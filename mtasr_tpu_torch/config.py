@@ -2,13 +2,13 @@
 
 Field names, defaults and the builders follow the JAX package's, which
 follow HF's `WavLMConfig` / `LlamaConfig`, so a config moves between the
-two by name (`from_fields`). Only what this slice of the port reads is
-here, plus the mode switches it refuses (`talker_ctc`, `ctc_bridge`, ...),
-so that a config asking for an unported mode is refused and not ignored.
-The JAX package's backend switches (`attention_impl`, `conv0_impl`,
+two by name (`from_fields`). Only what the ported slices read is here
+(serving, and attention-mode training with `TrainingConfig`), plus the mode
+switches the port refuses (`talker_ctc`, `ctc_bridge`, ...), so that a
+config asking for an unported mode is refused and not ignored. The JAX
+package's backend switches (`attention_impl`, `conv0_impl`,
 `decode_attn_impl`, `scan_layers`, ...) have no counterpart: the port
-chooses by the tensor's device. Training-only fields (dropouts, SpecAugment
-span lengths, optimizer settings) wait for the training slice.
+chooses by the tensor's device.
 """
 from __future__ import annotations
 
@@ -41,10 +41,27 @@ class WavLMConfig:
     adapter_stride: int = 2
     num_adapter_layers: int = 3
     output_hidden_size: Optional[int] = None  # defaults to hidden_size
-    # nonzero SpecAugment probabilities give the model its
-    # `masked_spec_embed` parameter (inference never applies it)
+    # SpecAugment: mask indices are drawn on the host (data/specaugment.py);
+    # nonzero probabilities give the model its `masked_spec_embed` parameter
+    apply_spec_augment: bool = True
     mask_time_prob: float = 0.05
+    mask_time_length: int = 10
+    mask_time_min_masks: int = 2
     mask_feature_prob: float = 0.0
+    mask_feature_length: int = 10
+    mask_feature_min_masks: int = 0
+    # dropouts, applied in training from an explicit torch.Generator;
+    # attention_dropout and layerdrop are read nowhere, as in the JAX package
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    feat_proj_dropout: float = 0.0
+    layerdrop: float = 0.0
+    # train the positional conv's weight norm as separate (g, v) parameters
+    # (HF WavLM's torch weight_norm); serving fuses them at load
+    pos_conv_weight_norm: bool = False
+    # recompute each encoder layer in backward (torch.utils.checkpoint)
+    remat: bool = False
 
     @property
     def out_hidden(self) -> int:
@@ -100,6 +117,8 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     bos_token_id: int = 128000
     eos_token_id: int = 128001
+    # recompute each decoder layer in backward (torch.utils.checkpoint)
+    remat: bool = False
 
     @property
     def head_dim_(self) -> int:
@@ -127,6 +146,7 @@ class SpeechEncoderDecoderConfig:
 
     pad_token_id: int = 128256
     sc_token_id: int = 128257          # <sc> speaker change
+    ignore_token_id: int = -100
     decoder_start_token_id: int = 128000  # BOS
     eos_token_id: int = 128001
     bos_token_id: int = 128000
@@ -143,9 +163,13 @@ class SpeechEncoderDecoderConfig:
     # the others off (models/speech_encoder_decoder.py::check_supported)
     train_mode: str = "attention"      # ctc | attention | hybrid
     talker_ctc: bool = False
+    talker_numbers: int = 2            # <sc>-separated talkers in a label
     talker_ctc_refine: bool = False
     ctc_bridge: bool = False
     decoder_cross_attention: bool = False
+    ctc_alpha: float = 0.7
+    # dropout on the decoder LoRA branch's input, in training only
+    lora_dropout: float = 0.1
 
     def validate(self) -> None:
         """Reject a config no model can have (unported modes are refused
@@ -194,6 +218,41 @@ class DataConfig:
     sampling_rate: int = 16000
     # audio length buckets: a batch is padded to its bucket's length
     bucket_boundaries_seconds: Tuple[float, ...] = (5.0, 10.0, 15.0, 20.0)
+    max_label_length: int = 256
+
+
+@dataclass
+class TrainingConfig:
+    """The HF Seq2SeqTrainingArguments subset the JAX package's trainer
+    reads (same names and defaults)."""
+    output_dir: str = "exp/run"
+    learning_rate: float = 3e-5
+    warmup_steps: int = 400
+    max_steps: int = 100_000
+    num_train_epochs: float = 30.0
+    per_device_train_batch_size: int = 12
+    per_device_eval_batch_size: int = 12
+    gradient_accumulation_steps: int = 1
+    max_grad_norm: float = 1.0
+    weight_decay: float = 0.0
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_epsilon: float = 1e-8
+    lr_scheduler_type: str = "linear"
+    logging_steps: int = 25
+    eval_steps: int = 1600
+    save_steps: int = 1600
+    save_total_limit: int = 5
+    seed: int = 42
+    bf16: bool = True
+    gradient_checkpointing: bool = False
+    metric_for_best_model: str = "eval_loss"
+    greater_is_better: bool = False
+    load_best_model_at_end: bool = True
+    pcgrad: bool = True
+    dp_size: int = -1
+    tp_size: int = 1
+    resume_from_checkpoint: Optional[str] = None
 
 
 _NESTED = {"encoder": WavLMConfig, "decoder": LlamaConfig}

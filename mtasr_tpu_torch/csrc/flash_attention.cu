@@ -5,7 +5,13 @@
 //
 // q [B, T, Hq, D], k/v [B, S, Hkv, D] bf16 (Hq % Hkv == 0, GQA by head
 // index), pos_bias [Hq, T, S] bf16, gate [B, Hq, T] bf16, kv_lens [B] int32.
-// Output [B, T, Hq, D] bf16. A row with kv_len = 0 gets zeros.
+// Output [B, T, Hq, D] bf16. A row with kv_len = 0 gets zeros. With a
+// non-null `lse`, also the logsumexp of each query row's scores [B*Hq, T]
+// f32 for the backward kernels (flash_attention_bwd.cu): m + log(l), as the
+// JAX forwards write it (flash_attention.py:110-112, :175-177), and -1e30
+// for a row with no valid key. The JAX one-block path folds a power-of-two
+// scale into q; the product q.k * scale is then the same f32 number, so the
+// lse is too.
 //
 // Replaces the TPU kernels `_flash_forward_1s` / `_flash_kernel_1s` (one key
 // block, S <= 512) and `_flash_forward` / `_flash_kernel` (tiled online
@@ -25,6 +31,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "flash_tile.cuh"
 
 using namespace nvcuda;
 
@@ -52,22 +59,6 @@ struct Layout {  // shared memory; leading dims padded against bank conflicts
   static constexpr size_t bytes = l + sizeof(float) * kBM;
 };
 
-// 64 rows x DP columns from `src` (row r at src + (row0 + r) * stride) into
-// shared memory; rows >= n_valid and columns >= D are zero. D % 8 == 0.
-template <int DP>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
-                                          long long stride, int row0,
-                                          int n_valid, int D) {
-  constexpr int kChunks = DP / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i - r * kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_valid && c < D)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -75,8 +66,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ pos_bias,
                  const bf16* __restrict__ gate,
                  const int* __restrict__ kv_lens, bf16* __restrict__ out,
-                 int T, int S, int Hq, int Hkv, int D, float scale,
-                 int has_bias) {
+                 float* __restrict__ lse, int T, int S, int Hq, int Hkv,
+                 int D, float scale, int has_bias) {
   using L = Layout<DP>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem + L::q);
@@ -99,7 +90,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* pb_h = pos_bias + static_cast<long long>(h) * T * S;
   const bf16* g_bh = gate + (static_cast<long long>(b) * Hq + h) * T;
 
-  load_rows<DP>(q_s, L::LDQ,
+  load_rows<DP, kThreads>(q_s, L::LDQ,
                 q + (static_cast<long long>(b) * T * Hq + h) * D, q_stride,
                 q0, T, D);
   for (int i = threadIdx.x; i < kBM * L::LDO; i += kThreads) o_s[i] = 0.f;
@@ -110,8 +101,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   for (int n0 = 0; n0 < kv_len; n0 += kBN) {
-    load_rows<DP>(k_s, L::LDQ, k_b, kv_stride, n0, kv_len, D);
-    load_rows<DP>(v_s, L::LDQ, v_b, kv_stride, n0, kv_len, D);
+    load_rows<DP, kThreads>(k_s, L::LDQ, k_b, kv_stride, n0, kv_len, D);
+    load_rows<DP, kThreads>(v_s, L::LDQ, v_b, kv_stride, n0, kv_len, D);
     __syncthreads();
 
     // scores of this warp's 16 query rows against the tile's kBN keys
@@ -194,6 +185,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (qi >= T) break;
     const float l = l_s[row];
     const float denom = l == 0.f ? 1.f : l;
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<long long>(b) * Hq + h) * T + qi] =
+          l == 0.f ? kNegInf : m_s[row] + logf(fmaxf(l, 1e-30f));
     bf16* orow = out + ((static_cast<long long>(b) * T + qi) * Hq + h) * D;
     for (int d = lane; d < D; d += 32)
       orow[d] = __float2bfloat16(o_s[row * L::LDO + d] / denom);
@@ -203,8 +197,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* pos_bias, const void* gate,
-                   const void* kv_lens, void* out, int B, int T, int S,
-                   int Hq, int Hkv, int D, float scale, int has_bias,
+                   const void* kv_lens, void* out, void* lse, int B, int T,
+                   int S, int Hq, int Hkv, int D, float scale, int has_bias,
                    cudaStream_t stream) {
   using L = Layout<DP>;
   auto kern = flash_fwd_kernel<DP>;
@@ -217,7 +211,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(pos_bias),
       static_cast<const bf16*>(gate), static_cast<const int*>(kv_lens),
-      static_cast<bf16*>(out), T, S, Hq, Hkv, D, scale, has_bias);
+      static_cast<bf16*>(out), static_cast<float*>(lse), T, S, Hq, Hkv, D,
+      scale, has_bias);
   return cudaGetLastError();
 }
 
@@ -225,20 +220,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 MTASR_EXPORT_ERROR_STRING
 
-// D % 8 == 0 and D <= 128; pos_bias / gate may be null when has_bias == 0.
+// D % 8 == 0 and D <= 128; pos_bias / gate may be null when has_bias == 0,
+// lse when the caller needs no backward.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const void* pos_bias,
                                       const void* gate, const void* kv_lens,
-                                      void* out, int B, int T, int S, int Hq,
-                                      int Hkv, int D, float scale,
-                                      int has_bias, void* stream) {
+                                      void* out, void* lse, int B, int T,
+                                      int S, int Hq, int Hkv, int D,
+                                      float scale, int has_bias,
+                                      void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D % 8 != 0 || D > 128 || Hkv <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
-      D <= 64 ? launch<64>(q, k, v, pos_bias, gate, kv_lens, out, B, T, S, Hq,
-                           Hkv, D, scale, has_bias, st)
-              : launch<128>(q, k, v, pos_bias, gate, kv_lens, out, B, T, S,
-                            Hq, Hkv, D, scale, has_bias, st);
+      D <= 64 ? launch<64>(q, k, v, pos_bias, gate, kv_lens, out, lse, B, T,
+                           S, Hq, Hkv, D, scale, has_bias, st)
+              : launch<128>(q, k, v, pos_bias, gate, kv_lens, out, lse, B, T,
+                            S, Hq, Hkv, D, scale, has_bias, st);
   return static_cast<int>(err);
 }

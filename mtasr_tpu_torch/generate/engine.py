@@ -27,6 +27,7 @@ from mtasr_tpu_torch.models.llama import (
 from mtasr_tpu_torch.models.speech_encoder_decoder import (
     EncodedSpeech, SpeechEncoderDecoderModel, encode_speech,
 )
+from mtasr_tpu_torch.train.lora import merged
 
 EOS_CHECK_EVERY = 8
 
@@ -204,7 +205,6 @@ def _check_gen(gen: GenerationConfig) -> None:
                                   "variants)")
 
 
-@torch.inference_mode()
 def generate(model: SpeechEncoderDecoderModel,
              cfg: SpeechEncoderDecoderConfig, input_values: torch.Tensor,
              audio_mask: Optional[torch.Tensor],
@@ -214,9 +214,18 @@ def generate(model: SpeechEncoderDecoderModel,
              max_new_tokens: Optional[int] = None) -> GenerateOutput:
     """Batched decode. prompt_ids [B, P] are the instruct prompt ids
     without BOS (they must end with <boss><eoss><bosr>); all rows share one
-    prompt layout. `generator` drives sampling (do_sample=True)."""
+    prompt layout. `generator` drives sampling (do_sample=True). A model
+    with a decoder LoRA decodes with it folded into the weights for the
+    call (`train.lora.merged`), as the JAX engine merges it per call."""
     gen = gen or GenerationConfig()
     _check_gen(gen)
+    with merged(model), torch.inference_mode():
+        return _generate(model, cfg, input_values, audio_mask, prompt_ids,
+                         gen, generator, max_new_tokens)
+
+
+def _generate(model, cfg, input_values, audio_mask, prompt_ids, gen,
+              generator, max_new_tokens) -> GenerateOutput:
     if max_new_tokens is None:
         max_new_tokens = gen.max_new_tokens or gen.max_length
     B = input_values.shape[0]

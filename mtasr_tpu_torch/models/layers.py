@@ -8,9 +8,12 @@ the activation dtype, normalisations reduced in float32.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mtasr_tpu_torch.ops.int8 import INV127
 
@@ -112,13 +115,45 @@ def group_norm(m: nn.LayerNorm, x_bct: torch.Tensor, num_groups: int,
     return y.to(x_bct.dtype)
 
 
-def conv1d(m: nn.Conv1d, x_btc: torch.Tensor, stride: int = 1,
+def conv1d(m: nn.Module, x_btc: torch.Tensor, stride: int = 1,
            padding: int = 0, groups: int = 1) -> torch.Tensor:
-    """Conv over time on [B, T, C] -> [B, T', C_out]."""
+    """Conv over time on [B, T, C] -> [B, T', C_out] (`m.weight` may be a
+    composed weight: `wavlm.WeightNormConv1d`)."""
     b = m.bias.to(x_btc.dtype) if m.bias is not None else None
     y = F.conv1d(x_btc.transpose(1, 2), m.weight.to(x_btc.dtype), b,
                  stride=stride, padding=padding, groups=groups)
     return y.transpose(1, 2)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator],
+            deterministic: bool = False) -> torch.Tensor:
+    """Inverted dropout (`mtasr_tpu/models/layers.py:275-280`): keep each
+    element with probability 1 - rate, from `generator` (on x's device),
+    and scale the kept ones by 1 / (1 - rate) in x's dtype. The identity
+    when deterministic, at rate 0, or without a generator."""
+    if deterministic or rate <= 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+
+
+def remat_layer(fn, generator: Optional[torch.Generator], *args):
+    """fn(*args) under `torch.utils.checkpoint`: its activations are
+    recomputed in backward. The recomputation replays the dropout masks:
+    the generator's state is taken here and restored when fn runs again
+    (checkpoint replays only the default generators by itself). After the
+    backward the generator is left where the first layer's replay ended;
+    the trainer gives every step a fresh generator."""
+    state = None if generator is None else generator.get_state()
+
+    def run(*a):
+        if state is not None:
+            generator.set_state(state)
+        return fn(*a)
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,12 @@ without its TPU lane-width gate: L = 1 through `decode_attention` (#4) or
 attention (XLA in the JAX package as well), which for an int8 cache is
 dequantized attention in the activation dtype.
 
+Training runs the forward without a cache (attention is plain PyTorch, as
+it is XLA in the JAX package), with the decoder LoRA applied to the
+activations (`_lora_linear`: dropout on the branch input, the low-rank
+product in float32, as `mtasr_tpu/models/llama.py:177-197`) and, with
+`cfg.remat`, each layer recomputed in backward.
+
 Parameter names are the JAX tree's flat keys under `decoder.`.
 """
 from __future__ import annotations
@@ -23,7 +29,9 @@ import torch
 from torch import nn
 
 from mtasr_tpu_torch.config import LlamaConfig
-from mtasr_tpu_torch.models.layers import QuantLinear, embed, linear
+from mtasr_tpu_torch.models.layers import (
+    QuantLinear, dropout, embed, linear, remat_layer,
+)
 from mtasr_tpu_torch.ops.attention import dot_product_attention
 from mtasr_tpu_torch.ops.int8 import INV127
 from mtasr_tpu_torch.ops.kernels.decode_attention import decode_attention
@@ -174,20 +182,43 @@ def lm_head(dec: Llama, cfg: LlamaConfig,
     return hidden @ w.to(hidden.dtype).t()
 
 
+def _lora_linear(m: nn.Module, x: torch.Tensor, ab: Optional[nn.Module],
+                 scale: float, generator: Optional[torch.Generator],
+                 rate: float) -> torch.Tensor:
+    """linear() plus the PEFT LoRA branch y += scale * B(A(drop(x))),
+    dropout on the branch input only, the branch in float32."""
+    y = linear(m, x)
+    if ab is None:
+        return y
+    xl = dropout(x.float(), rate, generator)
+    delta = (xl @ ab.lora_A.float().t()) @ ab.lora_B.float().t()
+    return y + (delta * scale).to(y.dtype)
+
+
 def _attention(att: _SelfAttention, cfg: LlamaConfig, x: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor, mask: torch.Tensor,
                layer_idx: int, kv_cache: Optional[KVCache],
-               cache_offset: int) -> torch.Tensor:
+               cache_offset: int, lora_layer: Optional[nn.Module] = None,
+               lora_scale: float = 1.0,
+               generator: Optional[torch.Generator] = None,
+               lora_dropout: float = 0.0) -> torch.Tensor:
     B, L, _ = x.shape
     D, Hq, Hkv = cfg.head_dim_, cfg.num_attention_heads, \
         cfg.num_key_value_heads
-    q = linear(att.q_proj, x).reshape(B, L, Hq, D)
-    k = linear(att.k_proj, x).reshape(B, L, Hkv, D)
-    v = linear(att.v_proj, x).reshape(B, L, Hkv, D)
+
+    def proj(name, inp):
+        ab = getattr(lora_layer, name, None) if lora_layer is not None \
+            else None
+        return _lora_linear(getattr(att, name), inp, ab, lora_scale,
+                            generator, lora_dropout)
+
+    q = proj("q_proj", x).reshape(B, L, Hq, D)
+    k = proj("k_proj", x).reshape(B, L, Hkv, D)
+    v = proj("v_proj", x).reshape(B, L, Hkv, D)
     q, k = apply_rotary_emb(q, k, cos, sin)
     if kv_cache is None:
         out = dot_product_attention(q, k, v, mask=mask, scale=D ** -0.5)
-        return linear(att.o_proj, out.reshape(B, L, Hq * D))
+        return proj("o_proj", out.reshape(B, L, Hq * D))
     # In place: the step's K/V go straight into their slots of the
     # preallocated cache (the JAX package, immutable, wrote a new buffer with
     # dynamic_update_slice). Attention then reads what was written: for an
@@ -225,6 +256,14 @@ def _attention(att: _SelfAttention, cfg: LlamaConfig, x: torch.Tensor,
     return linear(att.o_proj, out.reshape(B, L, Hq * D))
 
 
+def lora_layer(lora: Optional[nn.Module], idx: int) -> Optional[nn.Module]:
+    """The LoRA pairs of decoder layer `idx` (None where it has none);
+    `lora` is a `train.lora.DecoderLoRA`, keyed by layer index."""
+    if lora is None or str(idx) not in lora:
+        return None
+    return lora[str(idx)]
+
+
 def _mlp(mlp: _MLP, x: torch.Tensor) -> torch.Tensor:
     return linear(mlp.down_proj, torch.nn.functional.silu(
         linear(mlp.gate_proj, x)) * linear(mlp.up_proj, x))
@@ -234,11 +273,20 @@ def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
                   position_ids: torch.Tensor, *,
                   key_valid_mask: Optional[torch.Tensor] = None,
                   kv_cache: Optional[KVCache] = None, cache_offset: int = 0,
-                  compute_logits: bool = True, logits_to_keep: int = 0
+                  compute_logits: bool = True, logits_to_keep: int = 0,
+                  lora: Optional[nn.Module] = None, lora_dropout: float = 0.0,
+                  generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (logits [B, L or logits_to_keep, V], or the final hidden
     states, and the cache). Query row i (absolute position cache_offset + i)
-    attends to slot j iff j <= cache_offset + i and the slot is valid."""
+    attends to slot j iff j <= cache_offset + i and the slot is valid.
+
+    `lora` (the model's `decoder_lora`, without a cache only) adds its
+    branch to q/k/v/o; `generator` drives its input dropout (none without
+    one)."""
+    if lora is not None and kv_cache is not None:
+        raise ValueError("the LoRA branch runs without a cache; a cached "
+                         "forward takes merged weights (train/lora.py)")
     B, L, _ = inputs_embeds.shape
     device = inputs_embeds.device
     inv_freq, scaling = dec.rope_freqs(device)
@@ -257,15 +305,23 @@ def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
         mask = mask & key_valid_mask[:, None, :]
     mask = mask[:, None]                                      # [B, 1, L, S]
 
-    hidden = inputs_embeds
-    for idx in range(cfg.num_hidden_layers):
+    def layer(idx, hidden):
         lp = dec.model.layers[str(idx)]
         h = rms_norm(hidden, lp.input_layernorm.weight, cfg.rms_norm_eps)
-        hidden = hidden + _attention(lp.self_attn, cfg, h, cos, sin, mask,
-                                     idx, kv_cache, cache_offset)
+        hidden = hidden + _attention(
+            lp.self_attn, cfg, h, cos, sin, mask, idx, kv_cache,
+            cache_offset, lora_layer=lora_layer(lora, idx),
+            lora_scale=lora.scale if lora is not None else 1.0,
+            generator=generator, lora_dropout=lora_dropout)
         h = rms_norm(hidden, lp.post_attention_layernorm.weight,
                      cfg.rms_norm_eps)
-        hidden = hidden + _mlp(lp.mlp, h)
+        return hidden + _mlp(lp.mlp, h)
+
+    hidden = inputs_embeds
+    remat = cfg.remat and kv_cache is None and torch.is_grad_enabled()
+    for idx in range(cfg.num_hidden_layers):
+        hidden = (remat_layer(layer, generator, idx, hidden) if remat
+                  else layer(idx, hidden))
     hidden = rms_norm(hidden, dec.model.norm.weight, cfg.rms_norm_eps)
     if logits_to_keep:
         hidden = hidden[:, -logits_to_keep:, :]

@@ -2,9 +2,14 @@
 
 Conv feature encoder (layer 0 through the fused `conv0_fused` kernel),
 feature projection, positional conv, the transformer with WavLM's gated
-relative-position bias (attention through the `flash_attention` kernel,
-which composes the bias inside), and the conv adapter with its 4x tap.
-Inference only: no SpecAugment, no dropout.
+relative-position bias (attention through the `flash_attention` kernels,
+which compose the bias inside, forward and backward), and the conv adapter
+with its 4x tap. Training adds what the JAX forward adds: SpecAugment's
+`masked_spec_embed` at the host-drawn `mask_time_indices`, dropout at the
+JAX sites from an explicit `torch.Generator` (none in attention: the JAX
+package reads `attention_dropout` nowhere), the positional conv's weight
+norm composed from (g, v) in float32 when the model carries them, and
+per-layer recomputation (`torch.utils.checkpoint`) with `cfg.remat`.
 
 Parameter names are the JAX tree's flat keys under `encoder.`.
 """
@@ -18,7 +23,7 @@ from torch import nn
 
 from mtasr_tpu_torch.config import WavLMConfig
 from mtasr_tpu_torch.models.layers import (
-    ACT, conv1d, gelu, group_norm, layer_norm, linear,
+    ACT, conv1d, dropout, gelu, group_norm, layer_norm, linear, remat_layer,
 )
 from mtasr_tpu_torch.ops.kernels.conv_frontend import conv0_fused
 from mtasr_tpu_torch.ops.kernels.flash_attention import flash_attention
@@ -96,12 +101,37 @@ class _EncoderLayer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size)
 
 
+class WeightNormConv1d(nn.Module):
+    """The positional conv as torch's weight_norm(dim=2) trains it:
+    `weight_g` [1, 1, K] (a magnitude per kernel position), `weight_v`
+    [O, I / groups, K] and `bias` [O]; the weight is g * v / ||v|| with the
+    norm over (out, in), composed in float32 (`wavlm.py:387-393`)."""
+
+    def __init__(self, channels: int, kernel: int, groups: int):
+        super().__init__()
+        self.weight_g = nn.Parameter(torch.ones(1, 1, kernel))
+        self.weight_v = nn.Parameter(torch.empty(channels, channels // groups,
+                                                 kernel))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    @property
+    def weight(self) -> torch.Tensor:
+        v = self.weight_v.float()
+        norm = torch.sqrt((v * v).sum(dim=(0, 1), keepdim=True))
+        return (self.weight_g.float() * v / norm).to(self.weight_v.dtype)
+
+
+def pos_conv_module(cfg: WavLMConfig, weight_norm: bool) -> nn.Module:
+    E, K = cfg.hidden_size, cfg.num_conv_pos_embeddings
+    G = cfg.num_conv_pos_embedding_groups
+    return (WeightNormConv1d(E, K, G) if weight_norm
+            else nn.Conv1d(E, E, K, groups=G))
+
+
 class _PosConvEmbed(nn.Module):
     def __init__(self, cfg: WavLMConfig):
         super().__init__()
-        self.conv = nn.Conv1d(cfg.hidden_size, cfg.hidden_size,
-                              cfg.num_conv_pos_embeddings,
-                              groups=cfg.num_conv_pos_embedding_groups)
+        self.conv = pos_conv_module(cfg, cfg.pos_conv_weight_norm)
 
 
 class _Encoder(nn.Module):
@@ -135,6 +165,7 @@ class WavLM(nn.Module):
 
     def __init__(self, cfg: WavLMConfig):
         super().__init__()
+        self.cfg = cfg
         self.feature_extractor = _FeatureExtractor(cfg)
         self.feature_projection = _FeatureProjection(cfg)
         if cfg.mask_time_prob > 0 or cfg.mask_feature_prob > 0:
@@ -244,29 +275,39 @@ def _wavlm_attention(att: _Attention, cfg: WavLMConfig, x: torch.Tensor,
     return linear(att.out_proj, out.reshape(B, T, E))
 
 
-def _feed_forward(ff: _FeedForward, cfg: WavLMConfig,
-                  x: torch.Tensor) -> torch.Tensor:
+def _feed_forward(ff: _FeedForward, cfg: WavLMConfig, x: torch.Tensor,
+                  deterministic: bool = True,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
     h = ACT[cfg.hidden_act](linear(ff.intermediate_dense, x))
-    return linear(ff.output_dense, h)
+    h = dropout(h, cfg.activation_dropout, generator, deterministic)
+    h = linear(ff.output_dense, h)
+    return dropout(h, cfg.hidden_dropout, generator, deterministic)
 
 
 def wavlm_encoder_layer(lp: _EncoderLayer, cfg: WavLMConfig,
                         hidden: torch.Tensor, position_bias: torch.Tensor,
-                        attention_mask: Optional[torch.Tensor]
+                        attention_mask: Optional[torch.Tensor],
+                        deterministic: bool = True,
+                        generator: Optional[torch.Generator] = None
                         ) -> torch.Tensor:
     eps = cfg.layer_norm_eps
     if cfg.do_stable_layer_norm:
         h = _wavlm_attention(lp.attention, cfg,
                              layer_norm(lp.layer_norm, hidden, eps),
                              position_bias, attention_mask)
-        hidden = hidden + h
+        hidden = hidden + dropout(h, cfg.hidden_dropout, generator,
+                                  deterministic)
         return hidden + _feed_forward(
             lp.feed_forward, cfg,
-            layer_norm(lp.final_layer_norm, hidden, eps))
+            layer_norm(lp.final_layer_norm, hidden, eps), deterministic,
+            generator)
     h = _wavlm_attention(lp.attention, cfg, hidden, position_bias,
                          attention_mask)
+    h = dropout(h, cfg.hidden_dropout, generator, deterministic)
     hidden = layer_norm(lp.layer_norm, hidden + h, eps)
-    hidden = hidden + _feed_forward(lp.feed_forward, cfg, hidden)
+    hidden = hidden + _feed_forward(lp.feed_forward, cfg, hidden,
+                                    deterministic, generator)
     return layer_norm(lp.final_layer_norm, hidden, eps)
 
 
@@ -296,12 +337,19 @@ def wavlm_encoder_prologue(enc: _Encoder, cfg: WavLMConfig,
 
 
 def wavlm_encoder(enc: _Encoder, cfg: WavLMConfig, hidden: torch.Tensor,
-                  attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                  attention_mask: Optional[torch.Tensor],
+                  deterministic: bool = True,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
     hidden, position_bias = wavlm_encoder_prologue(enc, cfg, hidden,
                                                    attention_mask)
+    hidden = dropout(hidden, cfg.hidden_dropout, generator, deterministic)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_hidden_layers):
-        hidden = wavlm_encoder_layer(enc.layers[str(i)], cfg, hidden,
-                                     position_bias, attention_mask)
+        args = (enc.layers[str(i)], cfg, hidden, position_bias,
+                attention_mask, deterministic, generator)
+        hidden = (remat_layer(wavlm_encoder_layer, generator, *args) if remat
+                  else wavlm_encoder_layer(*args))
     if cfg.do_stable_layer_norm:
         hidden = layer_norm(enc.layer_norm, hidden, cfg.layer_norm_eps)
     return hidden
@@ -323,9 +371,14 @@ def wavlm_adapter(ad: _Adapter, cfg: WavLMConfig, hidden: torch.Tensor):
 
 
 def wavlm_forward(model: WavLM, cfg: WavLMConfig, input_values: torch.Tensor,
-                  attention_mask: Optional[torch.Tensor] = None
+                  attention_mask: Optional[torch.Tensor] = None, *,
+                  mask_time_indices: Optional[torch.Tensor] = None,
+                  deterministic: bool = True,
+                  generator: Optional[torch.Generator] = None
                   ) -> WavLMOutput:
-    """input_values [B, S] normalised waveform; attention_mask [B, S].
+    """input_values [B, S] normalised waveform; attention_mask [B, S];
+    mask_time_indices [B, T] bool (SpecAugment, drawn on the host). Dropout
+    runs unless `deterministic`, from `generator` (on the model's device).
 
     The waveform is cast to the model's dtype first, so a bf16 model runs
     bf16 end to end (the JAX package computes in the waveform's dtype)."""
@@ -340,7 +393,12 @@ def wavlm_forward(model: WavLM, cfg: WavLMConfig, input_values: torch.Tensor,
     norm_features = layer_norm(model.feature_projection.layer_norm, extract,
                                cfg.layer_norm_eps)
     hidden = linear(model.feature_projection.projection, norm_features)
-    hidden = wavlm_encoder(model.encoder, cfg, hidden, feat_mask)
+    hidden = dropout(hidden, cfg.feat_proj_dropout, generator, deterministic)
+    if mask_time_indices is not None and hasattr(model, "masked_spec_embed"):
+        hidden = torch.where(mask_time_indices.to(torch.bool)[:, :, None],
+                             model.masked_spec_embed.to(hidden.dtype), hidden)
+    hidden = wavlm_encoder(model.encoder, cfg, hidden, feat_mask,
+                           deterministic, generator)
     if cfg.add_adapter:
         last, tap = wavlm_adapter(model.adapter, cfg, hidden)
     else:

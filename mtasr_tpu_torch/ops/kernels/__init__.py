@@ -1,8 +1,8 @@
-"""The hand-written Hopper kernels of the served paths, each beside its
-plain PyTorch version. A wrapper takes the plain version for a CPU tensor
-and launches its CUDA kernel (built from `mtasr_tpu_torch/csrc/` at first
-use) for a CUDA tensor; it has no other route. Each wrapper counts its
-kernel launches in a plain int attribute, `launches`.
+"""The hand-written Hopper kernels of the served and trained paths, each
+beside its plain PyTorch version. A wrapper takes the plain version for a
+CPU tensor and launches its CUDA kernel (built from `mtasr_tpu_torch/csrc/`
+at first use) for a CUDA tensor; it has no other route. Each wrapper counts
+its kernel launches in a plain int attribute, `launches`.
 
 Nothing here imports or builds a kernel when the module is imported.
 """
@@ -24,16 +24,22 @@ WRAPPERS = {
     "decode_attention_chunk": decode_attention_chunk.decode_attention_chunk,
     "decode_attention_int8_chunk":
         decode_attention_chunk.decode_attention_int8_chunk,
+    "flash_attention_bwd_dq": flash_attention.flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": flash_attention.flash_attention_bwd_dkv,
+    "flash_attention_bwd_dpb": flash_attention.flash_attention_bwd_dpb,
 }
-_MODULES = (conv_frontend, flash_attention, decode_attention,
-            decode_attention_chunk)     # decode_attention_int8 shares chunk's
+# one build function per library (decode_attention_int8 shares the chunk
+# library, the three backward kernels share flash_attention_bwd's)
+_BUILDS = (conv_frontend.build, flash_attention.build,
+           flash_attention.build_bwd, decode_attention.build,
+           decode_attention_chunk.build)
 
 
 def build_all() -> None:
     """Compile (or load) every kernel library, one `nvcc` per source, all
     started together."""
-    with ThreadPoolExecutor(len(_MODULES)) as pool:
-        for f in [pool.submit(mod.build) for mod in _MODULES]:
+    with ThreadPoolExecutor(len(_BUILDS)) as pool:
+        for f in [pool.submit(build) for build in _BUILDS]:
             f.result()
 
 

@@ -12,6 +12,12 @@ for all three kernels of the slice.
 Unlike the TPU kernel, any S >= K is taken (no `supported()` gate, no
 silent fallback) and gelu is exact (erf), as in the JAX golden
 `_conv0_xla`.
+
+When an input requires a gradient, `conv0_fused` runs `Conv0Function`: its
+forward is the kernel, its backward autograd through `conv0_plain`, as the
+JAX package's backward is the vjp of its XLA composition
+(`conv_frontend.py:37-39`, `:191-218`). The training recipes freeze the
+feature extractor, so that backward runs only when someone unfreezes it.
 """
 from __future__ import annotations
 
@@ -55,6 +61,31 @@ def conv0_plain(wave: torch.Tensor, weight: torch.Tensor,
     return y.to(wave.dtype)
 
 
+class Conv0Function(torch.autograd.Function):
+    """The kernel forward; the backward is autograd through the plain
+    version, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, wave, weight, bias, gamma, beta, stride, eps, fuse_ln,
+                fuse_act):
+        ctx.save_for_backward(wave, weight, bias, gamma, beta)
+        ctx.kw = dict(stride=stride, eps=eps, fuse_ln=fuse_ln,
+                      fuse_act=fuse_act)
+        return _conv0_kernel(wave, weight, bias, gamma, beta, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = conv0_plain(*inputs, **ctx.kw)
+            wrt = [t for t in inputs if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, dout))
+        return tuple(next(grads) if t is not None and t.requires_grad
+                     else None for t in inputs) + (None,) * 4
+
+
 def conv0_fused(wave: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor],
                 gamma: Optional[torch.Tensor] = None,
@@ -79,6 +110,19 @@ def conv0_fused(wave: torch.Tensor, weight: torch.Tensor,
     if wave.device.type == "cpu":
         return conv0_plain(wave, weight, bias, gamma, beta, stride=stride,
                            eps=eps, fuse_ln=fuse_ln, fuse_act=fuse_act)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (wave, weight, bias, gamma, beta)):
+        return Conv0Function.apply(wave, weight, bias, gamma, beta, stride,
+                                   eps, fuse_ln, fuse_act)
+    return _conv0_kernel(wave, weight, bias, gamma, beta, stride=stride,
+                         eps=eps, fuse_ln=fuse_ln, fuse_act=fuse_act)
+
+
+def _conv0_kernel(wave, weight, bias, gamma, beta, *, stride, eps, fuse_ln,
+                  fuse_act):
+    B, S = wave.shape
+    O, _, K = weight.shape
     _build.require_cuda(wave, "conv0_fused")
     if wave.dtype != torch.bfloat16:
         raise TypeError(f"conv0_fused: wave must be bf16, got {wave.dtype}")

@@ -2,6 +2,7 @@
 
     python -m mtasr_tpu_torch.tools.profile_path [--batch 8] [--steps 32]
         [--quantize w8a8] [--kv_quant] [--trace-dir DIR]
+    python -m mtasr_tpu_torch.tools.profile_path --train [--batch 16]
 
 Builds the served model (`full_width.build`; `--quantize` / `--kv_quant`:
 the int8 serving leg), prepares one batch of 6-10 s
@@ -13,10 +14,16 @@ the profiled run, so overlapping kernels count once; idle share = 1 - busy
 / wall. Prints one line per phase with the largest kernels by device time,
 then one JSON line of the numbers. With `--trace-dir`, writes each phase's
 Chrome trace there.
+
+With `--train`: one attention-mode train step instead (`full_width.
+build_train`, the reference recipe's trainability, a fixed batch of 10 s
+rows, `Trainer`'s step: forward, backward, AdamW), after two warm-up
+steps, timed and profiled the same way.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -46,23 +53,27 @@ def busy_ms(intervals: List[Tuple[float, float]]) -> float:
     return total / 1e3
 
 
-def wall_ms(fn: Callable):
+def _mode(inference: bool):
+    return torch.inference_mode() if inference else contextlib.nullcontext()
+
+
+def wall_ms(fn: Callable, inference: bool = True):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.inference_mode():
+    with _mode(inference):
         out = fn()
     torch.cuda.synchronize()
     return out, 1e3 * (time.perf_counter() - t0)
 
 
-def profiled(fn: Callable, trace_path=None):
+def profiled(fn: Callable, trace_path=None, inference: bool = True):
     """(result, device busy ms, top kernels [(name, ms, count)])."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with torch.inference_mode():
+        with _mode(inference):
             out = fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -81,7 +92,8 @@ def profiled(fn: Callable, trace_path=None):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="rows (default 8; 16 with --train)")
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quantize", choices=("w8", "w8a8"), default=None,
@@ -89,10 +101,14 @@ def main(argv=None) -> None:
     ap.add_argument("--kv_quant", action="store_true",
                     help="int8 KV cache")
     ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--train", action="store_true",
+                    help="profile one full-width train step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_path needs a CUDA device")
-    B = args.batch
+    if args.train:
+        return train_profile(args)
+    B = args.batch or 8
     cfg, model, tr = full_width.build(args.seed, "cuda", torch.bfloat16,
                                       quantize=args.quantize,
                                       kv_quant=args.kv_quant)
@@ -144,13 +160,48 @@ def main(argv=None) -> None:
     for name, wall, busy, top in (("encode", w_enc, b_enc, k_enc),
                                   ("prefill", w_pre, b_pre, k_pre),
                                   ("decode", w_dec, b_dec, k_dec)):
-        print(f"== B={B}{leg} {name}: wall {wall:.3f} ms (no profiler), device "
-              f"busy {busy:.3f} ms (kernel-interval union, profiled run), "
-              f"idle share {1 - busy / wall:.3f}", flush=True)
-        for kname, ms, n in top:
-            print(f"   {ms:9.3f} ms x{n:5d}  {kname}", flush=True)
-        record[name] = {"wall_ms": wall, "busy_ms": busy,
-                        "idle_share": 1 - busy / wall}
+        _report(f"B={B}{leg} {name}", name, wall, busy, top, record)
+    print(json.dumps(record), flush=True)
+
+
+def _report(title, name, wall, busy, top, record):
+    print(f"== {title}: wall {wall:.3f} ms (no profiler), device busy "
+          f"{busy:.3f} ms (kernel-interval union, profiled run), idle share "
+          f"{1 - busy / wall:.3f}", flush=True)
+    for kname, ms, n in top:
+        print(f"   {ms:9.3f} ms x{n:5d}  {kname}", flush=True)
+    record[name] = {"wall_ms": wall, "busy_ms": busy,
+                    "idle_share": 1 - busy / wall}
+
+
+def train_profile(args) -> None:
+    from mtasr_tpu_torch.config import DataConfig, TrainingConfig
+    from mtasr_tpu_torch.train.loop import Trainer, step_generator
+    B = args.batch or 16
+    cfg, model = full_width.build_train(args.seed, "cuda", torch.bfloat16)
+    tc = TrainingConfig(learning_rate=1e-4, warmup_steps=2, max_steps=1000,
+                        pcgrad=False)
+    trainer = Trainer(cfg, tc, DataConfig(), model,
+                      freeze_kwargs=dict(freeze_decoder=True))
+    batch = full_width.train_batch(cfg, B, 10, args.seed)
+    tensors = trainer._tensors(batch)
+    step = trainer._train_step(batch.splice_index)
+    count = iter(range(10 ** 6))
+
+    def run():
+        return step(model, tensors, step_generator(args.seed, next(count),
+                                                   "cuda"))
+    for _ in range(2):
+        run()
+    _, wall = wall_ms(run, inference=False)
+    trace = (os.path.join(args.trace_dir, f"trace_train_B{B}.json")
+             if args.trace_dir else None)
+    if trace:
+        os.makedirs(args.trace_dir, exist_ok=True)
+    _, busy, top = profiled(run, trace, inference=False)
+    record = {"batch": B, "train": True,
+              "device": torch.cuda.get_device_name(0)}
+    _report(f"B={B} train step", "train_step", wall, busy, top, record)
     print(json.dumps(record), flush=True)
 
 

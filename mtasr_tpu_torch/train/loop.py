@@ -1,0 +1,197 @@
+"""The training loop (counterpart of `mtasr_tpu/train/loop.py::Trainer`):
+steps over epochs of batches, logging to `metrics.jsonl`, periodic eval
+(teacher-forced loss, and WER through the port's `generate`).
+
+As in the JAX trainer, every step's randomness is a function of (seed,
+step): its dropout comes from a fresh `torch.Generator` seeded from both,
+and the position in the data stream (epoch, batch in epoch) is kept in
+the state. Checkpointing (`save`, `maybe_resume`, best-model retention)
+comes with hybrid training (ROADMAP.md queue 1, item 11b): those calls
+raise, and `train` saves nothing.
+"""
+from __future__ import annotations
+
+import inspect
+import json
+import logging
+import os
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from mtasr_tpu_torch.config import (
+    DataConfig, GenerationConfig, SpeechEncoderDecoderConfig, TrainingConfig,
+)
+from mtasr_tpu_torch.data.pipeline import Batch
+from mtasr_tpu_torch.generate.engine import generate
+from mtasr_tpu_torch.train.freeze import (
+    apply_trainable_mask, freeze_summary, trainable_mask,
+)
+from mtasr_tpu_torch.train.optimizer import make_optimizer
+from mtasr_tpu_torch.train.train_step import make_eval_step, make_train_step
+from mtasr_tpu_torch.utils.wer import Calculator, clean_decoded_text
+
+logger = logging.getLogger("mtasr_tpu_torch.trainer")
+
+CHECKPOINT_TODO = ("checkpointing (save / resume / best-model retention) is "
+                   "not ported yet (ROADMAP.md queue 1, item 11b)")
+
+
+@dataclass
+class TrainState:
+    step: int = 0
+    epoch: int = 0            # data-stream position: the epoch of the
+    batch_in_epoch: int = 0   # last batch and how many it had consumed
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The dropout generator of one step: a function of (seed, step)."""
+    g = torch.Generator(device=device)
+    g.manual_seed((int(seed) * 1_000_003 + int(step)) % (2 ** 63))
+    return g
+
+
+class Trainer:
+    """Trains `model` in place on its device. Batches come from
+    `data/pipeline.py` (numpy arrays); each step moves one to the device."""
+
+    def __init__(self, cfg: SpeechEncoderDecoderConfig, tc: TrainingConfig,
+                 dc: DataConfig, model: torch.nn.Module, tokenizer=None,
+                 freeze_kwargs: Optional[dict] = None,
+                 gen_cfg: Optional[GenerationConfig] = None,
+                 total_steps: Optional[int] = None):
+        self.cfg, self.tc, self.dc = cfg, tc, dc
+        self.model = model
+        self.tokenizer = tokenizer
+        self.gen_cfg = gen_cfg or GenerationConfig()
+        self.device = next(model.parameters()).device
+        self.mask = trainable_mask(model, train_mode=cfg.train_mode,
+                                   **(freeze_kwargs or {}))
+        apply_trainable_mask(model, self.mask)
+        summ = freeze_summary(model, self.mask)
+        logger.info("params: total=%d trainable=%d frozen=%d", summ["total"],
+                    summ["trainable"], summ["frozen"])
+        sched_total = tc.max_steps if tc.max_steps > 0 else total_steps
+        self.optimizer = make_optimizer(model, tc, total_steps=sched_total)
+        self.state = TrainState()
+        self._train_steps: Dict[int, Callable] = {}
+        self._eval_steps: Dict[int, Callable] = {}
+        self.metrics_log: List[dict] = []
+
+    def _train_step(self, splice_index: int) -> Callable:
+        if splice_index not in self._train_steps:
+            self._train_steps[splice_index] = make_train_step(
+                self.cfg, self.tc, self.optimizer, splice_index=splice_index)
+        return self._train_steps[splice_index]
+
+    def _eval_step(self, splice_index: int) -> Callable:
+        if splice_index not in self._eval_steps:
+            self._eval_steps[splice_index] = make_eval_step(
+                self.cfg, splice_index=splice_index)
+        return self._eval_steps[splice_index]
+
+    def _tensors(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                for k, v in batch.arrays.items() if k != "prompt_ids"}
+
+    def _write_metrics(self, m: dict) -> None:
+        """Append one JSON line to `output_dir/metrics.jsonl`."""
+        try:
+            os.makedirs(self.tc.output_dir, exist_ok=True)
+            with open(os.path.join(self.tc.output_dir, "metrics.jsonl"),
+                      "a") as f:
+                f.write(json.dumps(m) + "\n")
+        except OSError:
+            pass
+
+    def save(self, output_dir: Optional[str] = None) -> str:
+        raise NotImplementedError(CHECKPOINT_TODO)
+
+    def maybe_resume(self) -> bool:
+        raise NotImplementedError(CHECKPOINT_TODO)
+
+    def train(self, train_batches: Callable[..., Iterable[Batch]],
+              eval_batches: Optional[Callable[[], Iterable[Batch]]] = None,
+              eval_refs: Optional[Dict[str, str]] = None,
+              max_steps: Optional[int] = None) -> TrainState:
+        """`train_batches()` (or `train_batches(epoch)`, so that the
+        shuffle is a function of the epoch) yields an epoch's batches."""
+        max_steps = max_steps or self.tc.max_steps
+        if max_steps <= 0:
+            max_steps = int(1e12)   # epoch mode: num_train_epochs bounds it
+        try:
+            takes_epoch = len(
+                inspect.signature(train_batches).parameters) >= 1
+        except (TypeError, ValueError):
+            takes_epoch = False
+        self.model.train()
+        t_start, samples = time.perf_counter(), 0
+        epoch = self.state.epoch
+        while self.state.step < max_steps:
+            epoch += 1
+            n_batches = 0
+            it = train_batches(epoch) if takes_epoch else train_batches()
+            for bi, batch in enumerate(it):
+                n_batches += 1
+                if self.state.step >= max_steps:
+                    break
+                gen = step_generator(self.tc.seed, self.state.step,
+                                     self.device)
+                metrics = self._train_step(batch.splice_index)(
+                    self.model, self._tensors(batch), gen)
+                self.state = TrainState(self.state.step + 1, epoch, bi + 1)
+                samples += batch.arrays["input_values"].shape[0]
+                if self.state.step % self.tc.logging_steps == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    dt = time.perf_counter() - t_start
+                    m.update(step=self.state.step, epoch=epoch,
+                             samples_per_second=round(samples / dt, 2),
+                             steps_per_second=round(self.state.step / dt, 3))
+                    self.metrics_log.append(m)
+                    self._write_metrics(m)
+                    logger.info("step %d: %s", self.state.step, m)
+                if (eval_batches is not None
+                        and self.state.step % self.tc.eval_steps == 0):
+                    em = self.evaluate(eval_batches(), eval_refs)
+                    logger.info("eval @%d: %s", self.state.step, em)
+                    self.model.train()
+            if n_batches == 0:
+                logger.warning("no batches produced this epoch; stopping")
+                break
+            if epoch >= self.tc.num_train_epochs and self.tc.max_steps <= 0:
+                break
+        return self.state
+
+    def evaluate(self, batches: Iterable[Batch],
+                 refs: Optional[Dict[str, str]] = None,
+                 with_generate: bool = True) -> Dict[str, float]:
+        """eval_loss over `batches`; with `refs` and a tokenizer also
+        eval_wer (%), from greedy `generate` (the decoder LoRA merged)."""
+        self.model.eval()
+        losses = []
+        calc = Calculator() if (refs and self.tokenizer) else None
+        for batch in batches:
+            arrays = self._tensors(batch)
+            m = self._eval_step(batch.splice_index)(self.model, arrays)
+            losses.append(float(m["loss"]))
+            if calc is not None and with_generate:
+                prompt = batch.arrays.get("prompt_ids")
+                out = generate(self.model, self.cfg, arrays["input_values"],
+                               arrays.get("audio_mask"),
+                               prompt_ids=None if prompt is None
+                               else torch.from_numpy(prompt),
+                               gen=self.gen_cfg)
+                seqs = out.sequences.cpu().numpy()
+                for i, utt_id in enumerate(batch.utt_ids):
+                    hyp = clean_decoded_text(self.tokenizer.decode(
+                        seqs[i], skip_special_tokens=False))
+                    calc.calculate(utt_id, clean_decoded_text(
+                        refs.get(utt_id, "")), hyp)
+        out_metrics = {"eval_loss": float(np.mean(losses)) if losses
+                       else 0.0}
+        if calc is not None:
+            out_metrics["eval_wer"] = calc.overall().wer
+        return out_metrics

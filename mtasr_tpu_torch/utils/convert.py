@@ -4,10 +4,13 @@
 `load_flat` takes the JAX parameter tree flattened to numpy arrays
 (`tree_to_flat(init_model_params(...))`, or an HF `state_dict`'s arrays)
 and loads it into the port's model with `load_state_dict(strict=True)`:
-the port's parameter names are the flat keys. Two keys need a fix-up:
+the port's parameter names are the flat keys. Three keys need a fix-up:
 the positional conv's weight norm (`weight_g` / `weight_v`) is fused into
-a plain weight, and HF's [1, H, 1, 1] `gru_rel_pos_const` is squeezed. A
-quantized tree (`tree_to_flat(quantize_for_serving(params, ...))`: int8
+a plain weight for serving, and kept as the two parameters it trains as
+with `training=True`; HF's [1, H, 1, 1] `gru_rel_pos_const` is squeezed;
+a decoder LoRA subtree (`decoder_lora.*`) becomes `model.decoder_lora`,
+its `__meta__` r and alpha plain attributes. A quantized tree
+(`tree_to_flat(quantize_for_serving(params, ...))`: int8
 `weight_q8a8` / `weight_q8` and f32 `scale` in a linear's slot) loads as
 well: each such slot of the model becomes a `QuantLinear` first.
 
@@ -27,6 +30,8 @@ from mtasr_tpu_torch.models.layers import QuantLinear
 from mtasr_tpu_torch.models.speech_encoder_decoder import (
     SpeechEncoderDecoderModel,
 )
+from mtasr_tpu_torch.models.wavlm import WavLM, pos_conv_module
+from mtasr_tpu_torch.train.lora import DecoderLoRA, LoRAPair
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -76,10 +81,54 @@ def _quantized_slots(model: torch.nn.Module,
                 bias_dtype=None if bias is None else _to_tensor(bias).dtype))
 
 
-def load_flat(model: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> None:
+def _pos_conv_slots(model: torch.nn.Module, flat: Mapping[str, np.ndarray],
+                    training: bool) -> bool:
+    """Give each WavLM's positional conv the (g, v) container when a
+    training load keeps them, else a plain conv. True if any is kept."""
+    kept = False
+    for name, mod in list(model.named_modules()):
+        if not isinstance(mod, WavLM):
+            continue
+        prefix = f"{name}." if name else ""
+        keep = training and \
+            f"{prefix}encoder.pos_conv_embed.conv.weight_g" in flat
+        holder = mod.encoder.pos_conv_embed
+        if hasattr(holder.conv, "weight_v") != keep:
+            device = next(model.parameters()).device
+            holder.conv = pos_conv_module(mod.cfg, keep).to(device)
+        kept |= keep
+    return kept
+
+
+def _lora_slot(model: torch.nn.Module, flat: Dict[str, np.ndarray]) -> None:
+    """Build `model.decoder_lora` for the `decoder_lora.*` keys of `flat`
+    (which are popped from the meta keys: r and alpha are attributes)."""
+    keys = [k for k in flat if k.startswith("decoder_lora.")]
+    if not keys:
+        return
+    r = float(np.asarray(flat.pop("decoder_lora.__meta__.r")))
+    alpha = float(np.asarray(flat.pop("decoder_lora.__meta__.alpha")))
+    device = next(model.parameters()).device
+    pairs: Dict[str, Dict[str, LoRAPair]] = {}
+    for key in keys:
+        if key.endswith(".lora_A"):
+            _, li, proj, _ = key.split(".")
+            out_dim = np.shape(flat[key[:-1] + "B"])[0]
+            in_dim = np.shape(flat[key])[1]
+            pairs.setdefault(li, {})[proj] = LoRAPair(
+                in_dim, out_dim, int(r), device=device)
+    model.decoder_lora = DecoderLoRA(pairs, r, alpha)
+
+
+def load_flat(model: torch.nn.Module, flat: Mapping[str, np.ndarray], *,
+              training: bool = False) -> None:
     """Load flat numpy parameters into `model` (strict: every key must
-    match a parameter or buffer, and every one must be given)."""
-    flat = _fuse_weight_norm(flat)
+    match a parameter or buffer, and every one must be given). With
+    `training`, a weight-normed positional conv keeps its (g, v)."""
+    flat = dict(flat)
+    if not _pos_conv_slots(model, flat, training):
+        flat = _fuse_weight_norm(flat)
+    _lora_slot(model, flat)
     _quantized_slots(model, flat)
     state = {}
     for key, value in flat.items():

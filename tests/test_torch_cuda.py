@@ -243,3 +243,100 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         dc.decode_attention_chunk(qc[:, :4].transpose(1, 2).contiguous()
                                   .transpose(1, 2), k8.bfloat16(),
                                   v8.bfloat16(), mc[:, :4])
+
+
+def _flash_bwd_inputs(g, B, T, S, hq, hkv, D, bias, lens):
+    from mtasr_tpu_torch.ops.kernels import flash_attention as fa
+    q, k, v = (_randn(g, B, T, hq, D), _randn(g, B, S, hkv, D),
+               _randn(g, B, S, hkv, D))
+    pb = _randn(g, hq, T, S, scale=0.5) if bias else None
+    gate = ((1 + torch.rand((B, hq, T), generator=g, device="cuda"))
+            .to(torch.bfloat16) if bias else None)
+    kv = torch.tensor(lens, device="cuda") if lens is not None else None
+    out = fa.flash_attention_plain(q, k, v, kv_lens=kv, pos_bias=pb,
+                                   gate=gate)
+    lse = fa.flash_attention_lse_plain(q, k, kv, pb, gate)
+    dout = _randn(g, B, T, hq, D)
+    return q, k, v, kv, pb, gate, out, lse, dout
+
+
+@pytest.mark.parametrize("B,T,S,hq,hkv,D,bias,lens", [
+    (3, 130, 130, 4, 4, 64, True, (130, 1, 0)),
+    (2, 200, 1000, 8, 2, 64, True, (1000, 555)),
+    (2, 77, 93, 4, 1, 128, False, (93, 0)),
+    (1, 499, 499, 16, 16, 64, True, None),
+])
+def test_flash_bwd_kernels(gen, B, T, S, hq, hkv, D, bias, lens):
+    """#8, #9, #10 against `flash_attention_bwd_plain`; the forward's lse
+    against the plain lse; a kv_len-0 row gives zero gradients. bf16
+    outputs: 4 ulps at max|ref| (ds and p round to bf16 before the
+    products on both sides, in another order of f32 sums)."""
+    from mtasr_tpu_torch.ops.kernels import flash_attention as fa
+    q, k, v, kv, pb, gate, out, lse, dout = _flash_bwd_inputs(
+        gen, B, T, S, hq, hkv, D, bias, lens)
+    o_k, lse_k = fa._forward(q, k, v, kv, pb, gate, D ** -0.5, True)
+    torch.cuda.synchronize()
+    assert float((lse_k - lse).abs().max()) < 2e-2
+    ref = fa.flash_attention_bwd_plain(q, k, v, kv, pb, gate, out, lse, dout)
+    n = (fa.flash_attention_bwd_dq.launches,
+         fa.flash_attention_bwd_dkv.launches,
+         fa.flash_attention_bwd_dpb.launches)
+    dq, dg = fa.flash_attention_bwd_dq(q, k, v, kv, pb, gate, out, lse, dout)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, kv, pb, gate, out, lse,
+                                        dout)
+    torch.cuda.synchronize()
+    _check(dq, ref[0], 4)
+    _check(dk, ref[1], 4)
+    _check(dv, ref[2], 4)
+    if bias:
+        _check(dg, ref[4], 4)
+        _check(fa.flash_attention_bwd_dpb(q, k, v, kv, pb, gate, out, lse,
+                                          dout), ref[3], 4)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches,
+            fa.flash_attention_bwd_dpb.launches) == \
+        (n[0] + 1, n[1] + 1, n[2] + int(bias))
+    if lens is not None and 0 in lens:
+        b = lens.index(0)
+        for t in (dq[b], dk[b], dv[b]):
+            assert bool(torch.isfinite(t).all()) and not t.any()
+
+
+def test_gradients_flow_through_the_kernel_functions(gen):
+    """The flash and conv0 wrappers under autograd: the kernels run
+    forward and backward, and the gradients match autograd through the
+    plain versions."""
+    from mtasr_tpu_torch.ops.kernels import conv_frontend as cf
+    from mtasr_tpu_torch.ops.kernels import flash_attention as fa
+    q, k, v, kv, pb, gate, _, _, dout = _flash_bwd_inputs(
+        gen, 2, 99, 99, 4, 4, 64, True, (99, 50))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, pb, gate)]
+    n_fwd = fa.flash_attention.launches
+    out = fa.flash_attention(*leaves[:3], kv_lens=kv, pos_bias=leaves[3],
+                             gate=leaves[4])
+    got = torch.autograd.grad(out, leaves, dout)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v, pb, gate)]
+    ref = torch.autograd.grad(
+        fa.flash_attention_plain(*ref_leaves[:3], kv_lens=kv,
+                                 pos_bias=ref_leaves[3], gate=ref_leaves[4]),
+        ref_leaves, dout)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n_fwd + 1
+    for a, b in zip(got, ref):
+        _check(a, b, 8)
+    wave = _randn(gen, 2, 1337)
+    w = _randn(gen, 512, 1, 10, scale=0.3).requires_grad_(True)
+    b, g2, bt = (_randn(gen, 512, scale=0.05).requires_grad_(True),
+                 (1 + _randn(gen, 512, scale=0.1)).requires_grad_(True),
+                 _randn(gen, 512, scale=0.05).requires_grad_(True))
+    n_conv = cf.conv0_fused.launches
+    y = cf.conv0_fused(wave, w, b, g2, bt, stride=5)
+    dy = _randn(gen, *y.shape)
+    got = torch.autograd.grad(y, (w, b, g2, bt), dy)
+    ref = torch.autograd.grad(cf.conv0_plain(wave, w, b, g2, bt, stride=5),
+                              (w, b, g2, bt), dy)
+    torch.cuda.synchronize()
+    assert cf.conv0_fused.launches == n_conv + 1
+    for a, r in zip(got, ref):
+        _check(a, r, 2)

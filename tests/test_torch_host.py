@@ -39,6 +39,9 @@ def _assert_fields_equal(port, ref):
     ("SpeechEncoderDecoderConfig", {}),
     ("GenerationConfig", {}),
     ("DataConfig", {}),
+    ("TrainingConfig", {}),
+    ("TrainingConfig", dict(learning_rate=1e-3,
+                            gradient_accumulation_steps=4)),
 ])
 def test_config_defaults_and_builders_match(name, kw):
     """Every field the port has holds the JAX package's value."""
@@ -154,3 +157,129 @@ def test_clean_decoded_text_matches():
     for text in ["a b<sc>c  d", "<bos_response>hi<eos_response><pad><pad>",
                  "x<unk>y <sc><sc> z<eos>", "", "   <sc>   "]:
         assert clean_decoded_text(text) == jclean(text)
+
+
+def _sot_labels(rng, B, sc, pad_rows=True):
+    rows = []
+    for _ in range(B):
+        rows.append(list(rng.integers(3, 40, rng.integers(2, 6))) + [sc]
+                    + list(rng.integers(3, 40, rng.integers(2, 6))))
+    L = max(len(r) for r in rows) + (2 if pad_rows else 0)
+    out = np.full((B, L), -100, np.int64)
+    for b, r in enumerate(rows):
+        out[b, :len(r)] = r
+    return out
+
+
+@pytest.mark.parametrize("instruct,split", [(False, True), (False, False),
+                                            (True, True)])
+def test_label_surgery_matches(instruct, split):
+    from mtasr_tpu.data import labels as jlabels
+    from mtasr_tpu_torch.data import labels as tlabels
+    rng = np.random.default_rng(3)
+    raw = _sot_labels(rng, 4, 51)
+    kw = dict(pad_token_id=50, decoder_start_token_id=1, eos_token_id=2,
+              sc_token_id=51, talker_numbers=2, split_speakers=split)
+    if instruct:
+        pre = np.tile([52, 20, 21, 53, 54, 55, 56], (4, 1))
+        raw = np.concatenate([pre, raw, np.full((4, 1), -100)], axis=1)
+        for b in range(4):          # <eosr> at the end of the response
+            raw[b, np.argmax(raw[b] == -100)] = 57
+        kw.update(instruct=True, eosr_token_id=57, bosp_token_id=52,
+                  eosp_token_id=53, bosr_token_id=56)
+    for pad_to in (None, 12):
+        got = tlabels.build_training_arrays(raw, label_spk_pad_to=pad_to,
+                                            **kw)
+        want = jlabels.build_training_arrays(raw, label_spk_pad_to=pad_to,
+                                             **kw)
+        assert set(got) == set(want)
+        for key, value in got.items():
+            np.testing.assert_array_equal(value, want[key], err_msg=key)
+    bad = raw.copy()
+    bad[0][bad[0] == 51] = 7                     # no <sc>: refused by both
+    if split:
+        with pytest.raises(ValueError, match="separators"):
+            tlabels.build_training_arrays(bad, **kw)
+
+
+@pytest.mark.parametrize("prob,length,min_masks", [(0.05, 10, 2),
+                                                   (0.3, 4, 0), (0.0, 10, 0),
+                                                   (0.65, 10, 2)])
+def test_spec_augment_masks_identical(prob, length, min_masks):
+    from mtasr_tpu.data.specaugment import compute_mask_indices as jmask
+    from mtasr_tpu_torch.data.specaugment import compute_mask_indices
+    lens = np.asarray([499, 321, 12, 499])
+    att = (np.arange(499)[None] < lens[:, None]).astype(int)
+    for seed in range(3):
+        got = compute_mask_indices((4, 499), prob, length, att, min_masks,
+                                   np.random.default_rng(seed))
+        want = jmask((4, 499), prob, length, att, min_masks,
+                     np.random.default_rng(seed))
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        compute_mask_indices((2, 50), 0.2, 5, rng=np.random.default_rng(9)),
+        jmask((2, 50), 0.2, 5, rng=np.random.default_rng(9)))
+
+
+@pytest.mark.parametrize("instruct", [False, True])
+def test_training_batches_match(instruct):
+    """`batches_from_examples` (training collate: label surgery, the
+    SpecAugment time mask from the shared numpy stream, padding to
+    max_label_length) gives the JAX package's batches, in its order."""
+    from mtasr_tpu.data import pipeline as jpipe
+    from mtasr_tpu_torch.data import pipeline as tpipe
+    cfg = tiny_cfg(train_mode="attention")
+    cfg.encoder.mask_time_prob = 0.05
+    cfg.encoder.mask_time_length = 4
+    prompt = [52, 20, 21, 53, 54, 55, 56] if instruct else []
+    if instruct:
+        cfg.instruct = True
+        for i, name in enumerate(("bosp", "eosp", "boss", "eoss", "bosr",
+                                  "eosr")):
+            setattr(cfg, f"{name}_token_id", 52 + i)
+    rng = np.random.default_rng(4)
+    jex, tex = [], []
+    for i in range(9):
+        wav = (rng.standard_normal(int(rng.integers(2000, 7000))) * 0.2)\
+            .astype(np.float32)
+        lab = [int(x) for x in _sot_labels(rng, 1, cfg.sc_token_id,
+                                           False)[0]]
+        if instruct:
+            lab = [52, 20, 21, 53, 54, 55, 56] + lab + [57]
+        pr = prompt[:4] if instruct else []
+        jex.append(jpipe.PreparedExample(f"u{i}", wav, lab, pr, len(wav)))
+        tex.append(tpipe.PreparedExample(f"u{i}", wav, pr, lab))
+    dc = jconfig.DataConfig(bucket_boundaries_seconds=(0.25, 0.5),
+                            max_label_length=30)
+    tdc = tconfig.from_fields(tconfig.DataConfig, dc)
+    tcfg = tconfig.from_fields(tconfig.SpeechEncoderDecoderConfig, cfg)
+    for kw in (dict(seed=5), dict(seed=6, pad_partial=True, shuffle=True),
+               dict(training=False, shuffle=False, drop_last=False)):
+        got = list(tpipe.batches_from_examples(tex, tcfg, tdc, 2, **kw))
+        want = list(jpipe.batches_from_examples(jex, cfg, dc, 2, **kw))
+        assert [b.utt_ids for b in got] == [b.utt_ids for b in want]
+        for g, w in zip(got, want):
+            assert g.splice_index == w.splice_index
+            keys = {k for k in w.arrays if not k.startswith("label_spk")}
+            assert set(g.arrays) == keys
+            for key in keys:
+                np.testing.assert_array_equal(g.arrays[key], w.arrays[key],
+                                              err_msg=key)
+        assert any("mask_time_indices" in b.arrays for b in got) == \
+            kw.get("training", True)
+
+
+def test_wer_calculator_matches():
+    from mtasr_tpu.utils.wer import Calculator as JCalc
+    from mtasr_tpu_torch.utils.wer import Calculator
+    rng = np.random.default_rng(5)
+    words = ["a", "b", "<sc>", "C", "dd", "<unk>"]
+    got, want = Calculator(), JCalc(use_native=False)
+    for i in range(40):
+        lab = " ".join(rng.choice(words, rng.integers(0, 8)))
+        rec = " ".join(rng.choice(words, rng.integers(0, 8)))
+        g, w = got.calculate(str(i), lab, rec), want.calculate(str(i), lab,
+                                                               rec)
+        assert (g.all, g.cor, g.sub, g.dele, g.ins) == \
+            (w.all, w.cor, w.sub, w.dele, w.ins)
+    assert got.overall().wer == want.overall().wer

@@ -2,7 +2,8 @@
 blocks `jax` and `mtasr_tpu`, imports every module of `mtasr_tpu_torch`,
 serves a tiny model on the CPU through `generate` and `Transcriber` with the
 port's own config and tokenizer, then quantized (w8a8, int8 KV cache), and
-checks that no kernel was launched (CPU tensors take the plain versions). No file of the port, and not
+takes a train step through `Trainer`, and checks that no kernel was
+launched (CPU tensors take the plain versions). No file of the port, and not
 `chip_smoke.py`, imports jax or the JAX package."""
 import pathlib
 import re
@@ -68,7 +69,22 @@ out = generate(model, cfg, wav, amask, max_new_tokens=5,
                gen=GenerationConfig(kv_quant=True))
 assert out.sequences.shape == (2, 5)
 assert set(kernels.launch_counts().values()) == {0}, kernels.launch_counts()
-assert len(kernels.launch_counts()) == 6
+assert len(kernels.launch_counts()) == 9
+# one attention-mode train step through Trainer (fresh model, LoRA)
+from mtasr_tpu_torch.config import TrainingConfig
+from mtasr_tpu_torch.data.pipeline import (PreparedExample,
+                                          batches_from_examples)
+from mtasr_tpu_torch.train.lora import init_decoder_lora
+from mtasr_tpu_torch.train.loop import Trainer
+model = init_random(cfg, g, "cpu", torch.float32)
+init_decoder_lora(model, g, r=2, alpha=4.0)
+ex = [PreparedExample(f"u{i}", wav[0].numpy(), [],
+                      [5, 6, sp.sc_token_id, 7]) for i in range(2)]
+trainer = Trainer(cfg, TrainingConfig(max_steps=1, warmup_steps=0),
+                  dc, model, freeze_kwargs=dict(freeze_decoder=True))
+trainer.train(lambda: batches_from_examples(ex, cfg, dc, 2))
+assert trainer.state.step == 1
+assert set(kernels.launch_counts().values()) == {0}, kernels.launch_counts()
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m]}
 assert not loaded & {"jax", "mtasr_tpu"}, loaded
 print("NO_JAX_OK")

@@ -248,8 +248,19 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     np.testing.assert_array_equal(
         dc.decode_attention_int8_chunk(qc, k8, k8, kvs, mc).numpy(),
         dc.decode_attention_int8_chunk_plain(qc, k8, k8, kvs, mc).numpy())
+    # the backward kernels' wrappers (#8-#10), on a forward with a bias
+    pb = torch.from_numpy(_rand((2, 9, 9), 4))
+    gate = torch.ones((1, 2, 9))
+    out = fa.flash_attention_plain(q, q, q, pos_bias=pb, gate=gate)
+    lse = fa.flash_attention_lse_plain(q, q, pos_bias=pb, gate=gate)
+    args = (q, q, q, None, pb, gate, out, lse, q)
+    ref = fa.flash_attention_bwd_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(
+        fa.flash_attention_bwd_dq(*args) + fa.flash_attention_bwd_dkv(*args)
+        + (fa.flash_attention_bwd_dpb(*args),),
+        (ref[0], ref[4], ref[1], ref[2], ref[3])))
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
-    assert len(kernels.WRAPPERS) == 6
+    assert len(kernels.WRAPPERS) == 9
 
 
 def test_wrappers_refuse_other_devices_and_bad_shapes():
