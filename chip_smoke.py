@@ -7,7 +7,7 @@ Phases, one line each, any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA device
    is a failure, nothing falls back to the CPU;
-2. build: compile the four kernel libraries of `mtasr_tpu_torch/csrc/`,
+2. build: compile the six kernel libraries of `mtasr_tpu_torch/csrc/`,
    one `nvcc` each, all started together;
 3. kernels: each kernel against its plain PyTorch version at the served
    paths' shapes (B = 8, 10 s audio, WavLM-Large + LLaMA-3.2-1B; the chunk
@@ -44,7 +44,24 @@ Phases, one line each, any failure exits non-zero:
    the encoder's gradients with kernels against the plain versions on one
    deterministic step, then one untimed step and TRAIN_STEPS timed ones on
    a fixed batch of 16 x 10 s (SpecAugment 0.05, default dropouts), with
-   the launch counts, samples/s, ms/step, peak memory and a falling loss.
+   the launch counts, samples/s, ms/step, peak memory and a falling loss;
+10. CTC kernels: #11 (alpha) and #12 (beta + log-posterior) against their
+    plain versions at the hybrid path's lattice (B = 16, T = 499, S = 21)
+    and on a ragged long-label one (S = 201), beside the yardstick
+    `F.ctc_loss` (forward for #11, forward and backward for #12) on the
+    same log-probs over the CTC head's 128265 outputs;
+11. hybrid train: the JAX bench's flagship recipe through `Trainer`
+    (hybrid SOT+CTC at ctc_alpha 0.7, the separator, two CTC heads of
+    128265 outputs, PCGrad, the decoder frozen with LoRA): the encoder,
+    separator and CTC-head gradients with kernels against the plain
+    versions on one deterministic step, then 1 untimed and TRAIN_STEPS
+    timed steps on the fixed batch with the exact launch counts, ms/step,
+    samples/s, peak memory, falling loss, loss_attn and loss_ctc, and the
+    per-head gradient norms;
+12. CTC serve: `Transcriber.transcribe_ctc` (the one-shot CTC decode) at
+    full width on 8 padded 6-10 s waveforms, two calls, with the launch
+    counts; the CTC heads' logits with kernels against the plain versions
+    within the bf16 whole-model gate; K strings per input.
 
 Every kernel's record carries its error, its time, its plain version's
 time, the least time the card could take (`bound_ms`, from the bytes the
@@ -85,6 +102,16 @@ TRAIN_LR = 1e-4       # the JAX bench's training learning rate
 # that sound kernels read at full width; #9 with p 1 % high read 0.0186
 # (PERF.md, Findings)
 GRAD_TOL = 0.015
+# the same for the hybrid step's encoder, separator and CTC-head gradients
+# (PCGrad's projected sum on the shared ones), kernels vs plain: about 2x
+# the 0.0100-0.0135 that sound kernels read at full width (the plain side's
+# cuDNN convolutions vary between runs); #11 or #12 ignoring the skip
+# transition read 1.69 and 0.96 (PERF.md, Findings)
+HYBRID_GRAD_TOL = 0.03
+# kernels #11 / #12 against their plain versions: both run the same f32
+# operations in the same order; the card's exp / log and ATen's differ in
+# the last bit, which the T-step recursion carries
+CTC_RTOL, CTC_ATOL = 1e-5, 1e-4
 # the backward kernels against their plain version, in bf16 ulps at
 # max|ref|: sound kernels read at most 0.5 at the training shapes, #9 with
 # p 1 % high 3 (PERF.md, Findings)
@@ -481,8 +508,9 @@ def plain_versions(enabled: bool = True, decoder_only: bool = False):
 
     import mtasr_tpu_torch.models.llama as llama_mod
     import mtasr_tpu_torch.models.wavlm as wavlm_mod
+    import mtasr_tpu_torch.ops.ctc_fused as ctc_fused
     from mtasr_tpu_torch.ops.kernels import (
-        conv_frontend as cf, decode_attention as da,
+        conv_frontend as cf, ctc as kc, decode_attention as da,
         decode_attention_chunk as dc, decode_attention_int8 as di,
         flash_attention as fa,
     )
@@ -491,7 +519,10 @@ def plain_versions(enabled: bool = True, decoder_only: bool = False):
         return
     patches = [] if decoder_only else [
         (wavlm_mod, "conv0_fused", cf.conv0_plain),
-        (wavlm_mod, "flash_attention", fa.flash_attention_plain)]
+        (wavlm_mod, "flash_attention", fa.flash_attention_plain),
+        (ctc_fused, "ctc_alpha", kc.ctc_alpha_plain),
+        (kc, "ctc_alpha", kc.ctc_alpha_plain),
+        (kc, "ctc_beta_post", kc.ctc_beta_post_plain)]
     patches += [(llama_mod, "decode_attention", da.decode_attention_plain),
                (llama_mod, "decode_attention_int8",
                 di.decode_attention_int8_plain),
@@ -882,6 +913,330 @@ def train_phase(torch, card: str, launches) -> None:
     torch.cuda.empty_cache()
 
 
+CTC_SOURCE = "mtasr_tpu_torch/csrc/ctc.cu"
+CTC_REPLACES = {"ctc_alpha": "mtasr_tpu/ops/pallas/ctc_kernel.py:206",
+                "ctc_beta_post": "mtasr_tpu/ops/pallas/ctc_kernel.py:271"}
+
+
+def ctc_inputs(torch, g, B, T, V, L, ragged):
+    """log-probs [B, T, V] f32, int32 lengths and labels of L ids. ragged:
+    input lengths from T down to 1, label lengths from L down to 0, a row
+    of one repeated id (every skip refused) and one impossible row."""
+    lp = torch.log_softmax(torch.randn((B, T, V), generator=g,
+                                       device="cuda") * 2, -1)
+    labels = torch.randint(3, 40, (B, L), generator=g, device="cuda")
+    ilen = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    llen = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    if ragged:
+        ilen.copy_(torch.linspace(T, 1, B, device="cuda").int())
+        llen.copy_(torch.linspace(L, 0, B, device="cuda").int())
+        labels[1] = labels[1, 0]
+        ilen[2], llen[2] = L // 2, L
+    return lp, ilen, labels, llen
+
+
+def ctc_kernel_phase(torch, card: str, records, cfg, batch) -> None:
+    """#11 and #12 against their plain versions at the hybrid path's
+    lattice (the train batch's talker streams: B = 16, T = 499, S = 21) and
+    on a ragged lattice of 100-id labels (S = 201); the log-probs span the
+    CTC head's outputs. Yardsticks: `F.ctc_loss` (reduction 'none',
+    zero_infinity) forward for #11, forward and backward for #12, on the
+    same log-probs; the port's gather + #11 is timed beside the first."""
+    import torch.nn.functional as F
+
+    from mtasr_tpu_torch.ops.kernels import ctc as kc
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 5)
+    B, T, V = TRAIN_BATCH, cfg.encoder.conv_output_length(SR * AUDIO_S), \
+        cfg.ctc_odim
+    L = batch.arrays["label_spks"].shape[2]
+    for ragged, L_case in ((False, L), (True, 100)):
+        lp, ilen, labels, llen = ctc_inputs(torch, g, B, T, V, L_case, ragged)
+        ext, allow = kc.lattice(labels, cfg.ctc_blank_id, V)
+        S = ext.shape[1]
+
+        def gather():
+            return lp.gather(2, ext[:, None].expand(-1, T, -1)).contiguous()
+        emit = gather()
+        alpha, final = kc.ctc_alpha(emit, ilen, llen, allow)
+        log_post = kc.ctc_beta_post(emit, alpha, ilen, llen, allow)
+        a_ref, f_ref = kc.ctc_alpha_plain(emit, ilen, llen, allow)
+        p_ref = kc.ctc_beta_post_plain(emit, alpha, ilen, llen, allow)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, out, ref in (("alpha", alpha, a_ref), ("final", final,
+                                                           f_ref),
+                               ("log_post", log_post, p_ref)):
+            err = float((out - ref).abs().max())
+            bad = (out - ref).abs() > CTC_ATOL + CTC_RTOL * ref.abs()
+            if not math.isfinite(err) or bool(bad.any()):
+                fail(f"ctc {name} (S = {S}): max_abs_err {err} over "
+                     f"rtol {CTC_RTOL} + atol {CTC_ATOL}")
+            errs[name] = err
+        loss = kc.zero_infinity_loss(kc.final_ll(final, llen))
+        lp_t = lp.transpose(0, 1)
+        ref_loss = F.ctc_loss(lp_t, labels, ilen, llen,
+                              blank=cfg.ctc_blank_id, reduction="none",
+                              zero_infinity=True)
+        loss_err = float((loss - ref_loss).abs().max())
+        say(f"kernel ctc (S = {S}{', ragged' if ragged else ''}): "
+            f"max_abs_err alpha {errs['alpha']:.6g} final "
+            f"{errs['final']:.6g} log_post {errs['log_post']:.6g} (rtol "
+            f"{CTC_RTOL} + atol {CTC_ATOL}); loss vs F.ctc_loss max_abs_err "
+            f"{loss_err:.6g} (losses up to {float(ref_loss.max()):.1f})")
+        if not loss_err <= 1e-3 * max(1.0, float(ref_loss.abs().max())):
+            fail(f"ctc loss against F.ctc_loss: {loss_err}")
+        if ragged:
+            continue
+        lp_g = lp_t.detach().requires_grad_(True)
+
+        def library_bwd():
+            out = F.ctc_loss(lp_g, labels, ilen, llen,
+                             blank=cfg.ctc_blank_id, reduction="none",
+                             zero_infinity=True)
+            return torch.autograd.grad(out.sum(), lp_g)
+        small = nbytes(allow, ilen, llen)
+        # a few exp / log a lattice cell and step: negligible next to the
+        # bytes; counted as 10 f32 operations a cell
+        ops = 10 * B * T * S
+        record(torch, card, records, "ctc_alpha", CTC_SOURCE,
+               CTC_REPLACES["ctc_alpha"],
+               max(errs["alpha"], errs["final"]),
+               f"rtol {CTC_RTOL} + atol {CTC_ATOL}; library = F.ctc_loss "
+               "forward",
+               lambda: kc.ctc_alpha(emit, ilen, llen, allow),
+               lambda: kc.ctc_alpha_plain(emit, ilen, llen, allow),
+               bound(nbytes(emit, alpha, final) + small, ops, "f32"),
+               lambda: F.ctc_loss(lp_t, labels, ilen, llen,
+                                  blank=cfg.ctc_blank_id, reduction="none",
+                                  zero_infinity=True), (B, T, S))
+        say(f"kernel ctc_alpha with its gather from [{B}, {T}, {V}] "
+            f"log-probs: {cuda_ms(torch, lambda: kc.ctc_alpha(gather(), ilen, llen, allow)):.4f} ms")
+        record(torch, card, records, "ctc_beta_post", CTC_SOURCE,
+               CTC_REPLACES["ctc_beta_post"], errs["log_post"],
+               f"rtol {CTC_RTOL} + atol {CTC_ATOL}; library = F.ctc_loss "
+               "forward and backward",
+               lambda: kc.ctc_beta_post(emit, alpha, ilen, llen, allow),
+               lambda: kc.ctc_beta_post_plain(emit, alpha, ilen, llen,
+                                              allow),
+               bound(nbytes(emit, alpha, log_post) + small, ops, "f32"),
+               library_bwd, (B, T, S))
+        del lp_g
+    del lp, emit, alpha, log_post
+    torch.cuda.empty_cache()
+
+
+def hybrid_grads(torch, cfg, model, t, plain: bool):
+    """(loss, {name: f32 gradient}) of the encoder, separator and CTC-head
+    parameters for one deterministic PCGrad step (no dropout, the batch's
+    SpecAugment mask): the projected head gradients on the shared ones,
+    the total loss's on the heads; launch counts (before, after)."""
+    from mtasr_tpu_torch.ops import kernels
+    from mtasr_tpu_torch.train import train_step as ts
+    shared, rest = ts._split_params(model)
+    n0 = kernels.launch_counts()
+    with plain_versions(plain):
+        out, head_grads, g_rest = ts._three_stage(model, cfg, t, 1, None,
+                                                  shared, rest)
+        g_shared = ts.pcgrad_project(head_grads)
+    torch.cuda.synchronize()
+    ids = {id(p): n for n, p in model.named_parameters()}
+    grads = {ids[id(p)]: g.detach().float()
+             for p, g in list(zip(shared, g_shared)) + list(zip(rest, g_rest))
+             if ids[id(p)].split(".")[0] in ("encoder", "separator",
+                                             "serialized_ctc")}
+    return float(out.loss.detach()), grads, (n0, kernels.launch_counts())
+
+
+def hybrid_gradient_gate(torch, cfg, model, t) -> float:
+    """The encoder, separator and CTC-head gradients of one deterministic
+    PCGrad step, kernels against plain versions: their global rel-L2, and
+    by part. Fails over HYBRID_GRAD_TOL, or if the kernel run missed a
+    kernel of the path or the plain run launched one."""
+    from mtasr_tpu_torch.ops import kernels
+    loss_k, gk, (a0, a1) = hybrid_grads(torch, cfg, model, t, False)
+    loss_p, gp, (b0, b1) = hybrid_grads(torch, cfg, model, t, True)
+    routed = [n for n in kernels.WRAPPERS if n.startswith("flash_attention")
+              or n.startswith("ctc_") or n == "conv0_fused"]
+    if any(a1[n] == a0[n] for n in routed) or \
+            any(b1[n] != b0[n] for n in routed):
+        fail(f"hybrid gradient check took the wrong route: {a0} -> {a1} -> "
+             f"{b1}")
+    parts = {}
+    for top in ("encoder", "separator", "serialized_ctc"):
+        names = [n for n in gk if n.startswith(top + ".")]
+        num = sum(float((gk[n] - gp[n]).pow(2).sum()) for n in names)
+        den = sum(float(gp[n].pow(2).sum()) for n in names)
+        parts[top] = (math.sqrt(num / den), len(names))
+    num = math.sqrt(sum(float((gk[n] - gp[n]).pow(2).sum()) for n in gk))
+    rel = num / math.sqrt(sum(float(gp[n].pow(2).sum()) for n in gp))
+    say(f"hybrid: gradients kernels vs plain, one deterministic PCGrad step: "
+        f"loss {loss_k:.6f} vs {loss_p:.6f}, rel_l2 {rel:.5g} over {len(gk)} "
+        f"tensors (tol {HYBRID_GRAD_TOL}); by part "
+        f"{ {k: (round(v[0], 6), v[1]) for k, v in parts.items()} }")
+    if not math.isfinite(rel) or rel > HYBRID_GRAD_TOL:
+        fail(f"hybrid gradients rel_l2 {rel} over {HYBRID_GRAD_TOL}")
+    del gk, gp
+    torch.cuda.empty_cache()
+    return rel
+
+
+def hybrid_train_phase(torch, card: str, launches) -> None:
+    """Full-width hybrid SOT+CTC training with PCGrad through `Trainer`
+    (module docstring, phase 11). Fails on a non-finite loss, a last loss
+    or loss_ctc on the fixed batch not below the first, launch counts other
+    than a step's 1 conv0, 24 flash forward, 2 x 24 of each flash backward
+    kernel and 4 of each CTC kernel, or gradients (kernels vs plain) over
+    HYBRID_GRAD_TOL."""
+    import numpy as np
+
+    from mtasr_tpu_torch.config import DataConfig, TrainingConfig
+    from mtasr_tpu_torch.ops import kernels
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.train.freeze import freeze_summary
+    from mtasr_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    cfg, model = full_width.build_train(SEED, "cuda", torch.bfloat16,
+                                        hybrid=True)
+    batch = full_width.train_batch(cfg, TRAIN_BATCH, AUDIO_S, SEED)
+    tc = TrainingConfig(output_dir=tempfile.mkdtemp(prefix="hybrid_smoke_"),
+                        learning_rate=TRAIN_LR, warmup_steps=2,
+                        max_steps=1000, logging_steps=1, pcgrad=True)
+    trainer = Trainer(cfg, tc, DataConfig(), model,
+                      freeze_kwargs=dict(freeze_decoder=True))
+    summ = freeze_summary(model, trainer.mask)
+    torch.cuda.synchronize()
+    say(f"hybrid: WavLM-Large + separator ({cfg.separator_hidden}) + "
+        f"{cfg.talker_numbers} CTC heads of {cfg.ctc_odim} + LLaMA-3.2-1B "
+        f"bf16 (+ LoRA r 16 f32), ctc_alpha {cfg.ctc_alpha}, PCGrad, "
+        f"{summ['trainable']} of {summ['total']} parameters train, batch "
+        f"{TRAIN_BATCH} x {AUDIO_S} s, talker labels "
+        f"{batch.arrays['label_spks'].shape} lengths "
+        f"{sorted(set(batch.arrays['label_spk_lens'].ravel().tolist()))}, "
+        f"built {time.perf_counter() - t0:.2f} s")
+
+    t = trainer._tensors(batch)
+    hybrid_gradient_gate(torch, cfg, model, t)
+
+    t0 = time.perf_counter()
+    trainer.train(lambda: [batch], max_steps=1)       # untimed first step
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train(lambda: [batch] * TRAIN_STEPS, max_steps=1 + TRAIN_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    K, L_enc = cfg.talker_numbers, cfg.encoder.num_hidden_layers
+    ctc_names = ("ctc_alpha", "ctc_beta_post")
+    expect = dict.fromkeys(kernels.WRAPPERS, 0)
+    expect["conv0_fused"] = TRAIN_STEPS
+    expect["flash_attention"] = L_enc * TRAIN_STEPS
+    for n in kernels.WRAPPERS:
+        if n.startswith("flash_attention_bwd"):
+            expect[n] = K * L_enc * TRAIN_STEPS      # K encoder backwards
+    for n in ctc_names:       # the loss's and the per-head pass's, per head
+        expect[n] = 2 * K * TRAIN_STEPS
+    for name, n in counts.items():
+        launches[name] += n
+    log = trainer.metrics_log
+    say(f"hybrid: {TRAIN_STEPS} timed steps after 1 untimed ({first_s:.3f} "
+        f"s): {1e3 * dt / TRAIN_STEPS:.2f} ms/step, "
+        f"{TRAIN_BATCH * TRAIN_STEPS / dt:.3f} samples/s, peak memory "
+        f"{peak:.2f} GiB (max_memory_allocated), launches {counts} "
+        f"B={TRAIN_BATCH} [{card}]")
+    for key in ("loss", "loss_attn", "loss_ctc", "grad_norm"):
+        say(f"hybrid: {key} {[round(m[key], 5) for m in log]}")
+    say(f"hybrid: ctc_head_grad_norms "
+        f"{[[round(x, 4) for x in m['ctc_head_grad_norms']] for m in log]}")
+    if counts != expect:
+        fail(f"hybrid launch counts {counts} != expected {expect}")
+    losses = [m["loss"] for m in log]
+    ctc = [m["loss_ctc"] for m in log]
+    if not all(np.isfinite(losses + ctc)) or len(losses) != 1 + TRAIN_STEPS:
+        fail(f"hybrid losses {losses} / {ctc}")
+    if not (losses[-1] < losses[0] and ctc[-1] < ctc[0]):
+        fail(f"the hybrid loss or loss_ctc did not fall: {losses} / {ctc}")
+    del trainer, model, t
+    torch.cuda.empty_cache()
+
+
+def ctc_serve_phase(torch, card: str, launches) -> None:
+    """`Transcriber.transcribe_ctc` at full width (module docstring, phase
+    12): two calls of 8 padded 6-10 s waveforms, launch counts exact (1
+    conv0 and 24 flash a call, no CTC kernel: the decode computes no
+    loss), K strings an input; the CTC heads' logits with kernels against
+    plain within LOGITS_TOL."""
+    from unittest import mock
+
+    import mtasr_tpu_torch.api as api_mod
+    from mtasr_tpu_torch.models.ctc_head import ctc_logits
+    from mtasr_tpu_torch.models.speech_encoder_decoder import (
+        ctc_heads, encode_feats,
+    )
+    from mtasr_tpu_torch.ops import kernels
+    from mtasr_tpu_torch.tools import full_width
+
+    cfg, model, tr = full_width.build(SEED, "cuda", torch.bfloat16,
+                                      hybrid=True)
+    requests = full_width.waveforms(SEED + 7, 2, BATCH, (6.0, 10.0))
+    calls = []
+    real = api_mod.generate_ctc
+
+    def counting(*a, **kw):
+        out = real(*a, **kw)
+        calls.append(out[1].cpu())          # lengths [K, B]
+        return out
+    walls = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with mock.patch.object(api_mod, "generate_ctc", counting):
+        for wavs in requests:
+            t0 = time.perf_counter()
+            out = tr.transcribe_ctc(wavs, batch_size=BATCH)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if len(out) != BATCH or not all(
+                    len(s) == cfg.talker_numbers and
+                    all(isinstance(x, str) for x in s) for s in out):
+                fail(f"transcribe_ctc returned a malformed result: {out}")
+    counts = kernels.launch_counts()
+    expect = dict.fromkeys(kernels.WRAPPERS, 0)
+    expect["conv0_fused"] = len(calls)
+    expect["flash_attention"] = cfg.encoder.num_hidden_layers * len(calls)
+    audio = sum(len(w) for w in requests[-1]) / SR
+    say(f"ctc serve: {len(requests)} transcribe_ctc calls x {BATCH} "
+        f"waveforms, walls {[round(w, 3) for w in walls]} s, RTFx "
+        f"{audio / walls[-1]:.2f} (the second call), launches {counts}, "
+        f"collapsed CTC tokens a stream (last call) "
+        f"{calls[-1].tolist()} [{card}]")
+    if counts != expect:
+        fail(f"ctc serve launch counts {counts} != expected {expect}")
+    for name, n in counts.items():
+        launches[name] += n
+
+    wav, amask = one_batch(torch, tr, requests[-1])
+    logits = {}
+    for plain in (False, True):
+        with plain_versions(plain), torch.inference_mode():
+            feats = encode_feats(model, cfg, wav, amask)
+            logits[plain] = [ctc_logits(h, x).float() for h, x in
+                             zip(ctc_heads(model, cfg), feats.sep_hidden)]
+    rel = [float((k - p).norm() / p.norm())
+           for k, p in zip(logits[False], logits[True])]
+    say(f"ctc serve: CTC-head logits kernels vs plain rel_l2 "
+        f"{[round(r, 5) for r in rel]} (tol {LOGITS_TOL} each), shape "
+        f"{tuple(logits[False][0].shape)}")
+    if not all(math.isfinite(r) and r <= LOGITS_TOL for r in rel):
+        fail(f"CTC-head logits rel_l2 {rel} over {LOGITS_TOL}")
+    del model, tr, logits
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     # the port stands alone: importing JAX or the JAX package now fails
     sys.modules["jax"] = None
@@ -982,6 +1337,13 @@ def main() -> None:
     del model, transcriber, model8, tr8
     torch.cuda.empty_cache()
     train_phase(torch, card, launches)
+
+    # -- hybrid SOT+CTC: the CTC kernels, PCGrad training, the CTC decode
+    cfg_h, _ = full_width.config(hybrid=True)
+    ctc_kernel_phase(torch, card, records, cfg_h, full_width.train_batch(
+        cfg_h, TRAIN_BATCH, AUDIO_S, SEED))
+    hybrid_train_phase(torch, card, launches)
+    ctc_serve_phase(torch, card, launches)
 
     records = list(records.values())
     for r in records:

@@ -3,6 +3,7 @@
     from mtasr_tpu_torch.api import Transcriber
     t = Transcriber(cfg, model, tokenizer)
     texts = t.transcribe([wav_a, wav_b])     # greedy SOT decode
+    streams = t.transcribe_ctc([wav_a])      # K per-speaker CTC transcripts
 
 int8 serving: quantize the model in place
 (`utils.quantize.quantize_for_serving(model, "w8a8")`) and give the
@@ -25,7 +26,7 @@ from mtasr_tpu_torch.config import (
 from mtasr_tpu_torch.data.audio import normalize_waveform, read_wav, resample
 from mtasr_tpu_torch.data.pipeline import PreparedExample, decode_batches
 from mtasr_tpu_torch.data.tokenizer import build_prompt_and_input
-from mtasr_tpu_torch.generate.engine import generate
+from mtasr_tpu_torch.generate.engine import generate, generate_ctc
 from mtasr_tpu_torch.utils.wer import clean_decoded_text
 
 AudioInput = Union[str, np.ndarray]
@@ -123,7 +124,31 @@ class Transcriber:
                 results[uid] = clean_decoded_text(text) if clean else text
         return [results[f"@{i}"] for i in range(len(audio))]
 
-    def transcribe_ctc(self, audio, **kw) -> List[List[str]]:
-        raise NotImplementedError("the one-shot CTC path is not ported yet "
-                                  "(ROADMAP.md queue 1, item 11b: it comes "
-                                  "with the separator and the CTC heads)")
+    def transcribe_ctc(self, audio: Sequence[AudioInput], *,
+                       batch_size: int = 8, max_out_len: int = 150,
+                       clean: bool = True) -> List[List[str]]:
+        """One-shot CTC decode (`api.py:204-237`): K per-speaker
+        transcripts per input, in input order, from the separator and the
+        CTC heads (no decoder)."""
+        if not self.cfg.talker_ctc:
+            raise ValueError("transcribe_ctc needs talker_ctc CTC heads")
+        device = next(self.model.parameters()).device
+        K = self.cfg.talker_numbers
+        results: Dict[str, List[str]] = {}
+        for batch in self._batches(self._examples(audio, prompt=""),
+                                   batch_size):
+            wav = torch.from_numpy(batch.arrays["input_values"]).to(device)
+            amask = torch.from_numpy(batch.arrays["audio_mask"]).to(device)
+            trans, lens = generate_ctc(self.model, self.cfg, wav, amask,
+                                       max_out_len=max_out_len)
+            trans = trans.cpu().numpy().reshape(len(batch.utt_ids), K, -1)
+            lens = lens.cpu().numpy().T
+            for i, uid in enumerate(batch.utt_ids):
+                streams = []
+                for k in range(K):
+                    text = self.tokenizer.decode(trans[i, k, :lens[i, k]],
+                                                 skip_special_tokens=False)
+                    streams.append(clean_decoded_text(text) if clean
+                                   else text)
+                results[uid] = streams
+        return [results[f"@{i}"] for i in range(len(audio))]

@@ -3,9 +3,10 @@
 Field names, defaults and the builders follow the JAX package's, which
 follow HF's `WavLMConfig` / `LlamaConfig`, so a config moves between the
 two by name (`from_fields`). Only what the ported slices read is here
-(serving, and attention-mode training with `TrainingConfig`), plus the mode
-switches the port refuses (`talker_ctc`, `ctc_bridge`, ...), so that a
-config asking for an unported mode is refused and not ignored. The JAX
+(serving; attention-mode and hybrid SOT+CTC training with `TrainingConfig`,
+the separator and the CTC heads), plus the mode switches the port refuses
+(`ctc_bridge`, `talker_ctc_refine`, ...), so that a config asking for an
+unported mode is refused and not ignored. The JAX
 package's backend switches (`attention_impl`, `conv0_impl`,
 `decode_attn_impl`, `scan_layers`, ...) have no counterpart: the port
 chooses by the tensor's device.
@@ -159,11 +160,14 @@ class SpeechEncoderDecoderConfig:
     bosr_token_id: int = 128262        # <bos_response>
     eosr_token_id: int = 128263        # <eos_response>
 
-    # mode switches; the port serves train_mode="attention" with all of
-    # the others off (models/speech_encoder_decoder.py::check_supported)
+    # mode switches; the port refuses refiners, bridges and cross-attention
+    # (models/speech_encoder_decoder.py::check_supported)
     train_mode: str = "attention"      # ctc | attention | hybrid
-    talker_ctc: bool = False
+    talker_ctc: bool = False           # separator + K serialized-CTC heads
     talker_numbers: int = 2            # <sc>-separated talkers in a label
+    separator_hidden: int = 896
+    # dropout after each separator LSTM layer, in training only
+    separator_dropout: float = 0.2
     talker_ctc_refine: bool = False
     ctc_bridge: bool = False
     decoder_cross_attention: bool = False
@@ -178,6 +182,18 @@ class SpeechEncoderDecoderConfig:
         if self.train_mode not in ("ctc", "attention", "hybrid"):
             err.append(f"train_mode={self.train_mode!r} not in "
                        "ctc/attention/hybrid")
+        needs_ctc = []
+        if self.train_mode in ("ctc", "hybrid"):
+            needs_ctc.append(f"train_mode={self.train_mode}")
+        if self.ctc_bridge:
+            needs_ctc.append("ctc_bridge")
+        if self.talker_ctc_refine:
+            needs_ctc.append("talker_ctc_refine")
+        if needs_ctc and not self.talker_ctc:
+            err.append(f"{', '.join(needs_ctc)} require(s) talker_ctc=True "
+                       "(separator + serialized CTC heads)")
+        if self.talker_ctc and self.talker_numbers < 2:
+            err.append("talker_numbers must be >= 2 with talker_ctc")
         if self.instruct:
             specials = (self.bosp_token_id, self.eosp_token_id,
                         self.boss_token_id, self.eoss_token_id,
@@ -191,6 +207,15 @@ class SpeechEncoderDecoderConfig:
         if err:
             raise ValueError("invalid SpeechEncoderDecoderConfig:\n  - "
                              + "\n  - ".join(err))
+
+    @property
+    def ctc_blank_id(self) -> int:
+        """The CTC heads' blank: odim = decoder vocab + 1, blank = odim - 1."""
+        return self.decoder.vocab_size
+
+    @property
+    def ctc_odim(self) -> int:
+        return self.decoder.vocab_size + 1
 
 
 @dataclass(frozen=True)

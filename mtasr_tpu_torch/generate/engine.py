@@ -11,6 +11,9 @@ tests for eos every step. Here it is a Python loop that asks the device
 whether every row is done only every `EOS_CHECK_EVERY` steps, so the host
 does not wait on the device each step; rows that are done emit `pad`, so
 the extra steps change no output.
+
+`generate_ctc` is the one-shot CTC decode: each CTC head's collapsed argmax
+path on its separated stream, no decoder.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from mtasr_tpu_torch.models.llama import (
     KVCache, embed_tokens, llama_forward, lm_head,
 )
 from mtasr_tpu_torch.models.speech_encoder_decoder import (
-    EncodedSpeech, SpeechEncoderDecoderModel, encode_speech,
+    EncodedSpeech, SpeechEncoderDecoderModel, encode_speech, forward_ctc,
 )
 from mtasr_tpu_torch.train.lora import merged
 
@@ -240,3 +243,13 @@ def _generate(model, cfg, input_values, audio_mask, prompt_ids, gen,
     return _decode(model, cfg, cache, last_logits, n_valid, Lp,
                    total_prefill, enc.encoder_hidden_states.dtype, gen,
                    int(max_new_tokens), generator)
+
+
+@torch.inference_mode()
+def generate_ctc(model: SpeechEncoderDecoderModel,
+                 cfg: SpeechEncoderDecoderConfig, input_values: torch.Tensor,
+                 audio_mask: Optional[torch.Tensor], max_out_len: int = 150
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-shot CTC decode (`engine.py:317-323`): (transcriptions
+    [B, K * max_out_len] in head-major blocks, lengths [K, B])."""
+    return forward_ctc(model, cfg, input_values, audio_mask, max_out_len)

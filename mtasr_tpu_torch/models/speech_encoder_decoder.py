@@ -1,38 +1,38 @@
-"""Composite speech encoder-decoder, attention mode (counterpart of
+"""Composite speech encoder-decoder (counterpart of
 `mtasr_tpu/models/speech_encoder_decoder.py`): WavLM -> adapter ->
-`enc_to_dec_proj` -> LLaMA with the speech spliced into the prompt.
+`enc_to_dec_proj` -> LLaMA with the speech spliced into the prompt, and with
+`talker_ctc` the speaker separator on WavLM's 50 Hz output feeding K
+serialized-CTC heads (`serialized_ctc.{k}.ctc_lo`).
 
-The port serves and trains `train_mode="attention"` with no separator,
-serialized-CTC heads, CTC bridges or cross-attention adapters; a config
-that asks for one of those is refused with the `ROADMAP.md` item that
-ports it. `model_forward` is the teacher-forced training forward: the
-speech spliced into the decoder inputs, the labels laid out behind it, and
-the cross-entropy.
+`encode_feats` is stage A (encoder and separator, the parameters PCGrad
+treats as shared), `bridge_features` stage B, `model_forward_from_enc` the
+decoder and the losses; `model_forward` runs all three. `forward_ctc` is the
+one-shot CTC decode. CTC bridges, refiners and cross-attention adapters are
+refused with the `ROADMAP.md` item that ports them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from mtasr_tpu_torch.config import SpeechEncoderDecoderConfig
+from mtasr_tpu_torch.models.ctc_head import CTCHead, ctc_argmax
 from mtasr_tpu_torch.models.layers import linear
 from mtasr_tpu_torch.models.llama import Llama, embed_tokens, llama_forward
-from mtasr_tpu_torch.models.losses import HYBRID_TODO, hybrid_loss
+from mtasr_tpu_torch.models.losses import hybrid_loss
+from mtasr_tpu_torch.models.separator import Separator, separator_forward
 from mtasr_tpu_torch.models.wavlm import (
     WavLM, feature_vector_attention_mask, wavlm_forward,
 )
+from mtasr_tpu_torch.ops.ctc import ctc_greedy_collapse
 
 
 def check_supported(cfg: SpeechEncoderDecoderConfig) -> None:
-    """Raise NotImplementedError for the parts of the JAX model this slice
-    of the port does not have yet."""
-    if cfg.talker_ctc or cfg.train_mode != "attention":
-        raise NotImplementedError(
-            "talker_ctc / " + HYBRID_TODO + "; the one-shot CTC decode "
-            "comes with it")
+    """Raise NotImplementedError for the parts of the JAX model the port
+    does not have yet."""
     if cfg.ctc_bridge or cfg.talker_ctc_refine or cfg.decoder_cross_attention:
         raise NotImplementedError(
             "CTC bridges, refiners and cross-attention adapters are not "
@@ -42,7 +42,8 @@ def check_supported(cfg: SpeechEncoderDecoderConfig) -> None:
 
 class SpeechEncoderDecoderModel(nn.Module):
     """Parameter container of the composite model: `encoder.*`,
-    `decoder.*` and, when the widths differ, `enc_to_dec_proj`."""
+    `decoder.*`, when the widths differ `enc_to_dec_proj`, and with
+    `talker_ctc` `separator.*` and `serialized_ctc.{k}.ctc_lo`."""
 
     def __init__(self, cfg: SpeechEncoderDecoderConfig):
         super().__init__()
@@ -58,22 +59,39 @@ class SpeechEncoderDecoderModel(nn.Module):
         if cfg.encoder.out_hidden != cfg.decoder.hidden_size:
             self.enc_to_dec_proj = nn.Linear(cfg.encoder.out_hidden,
                                              cfg.decoder.hidden_size)
+        if cfg.talker_ctc:
+            # the 50 Hz features, before the adapter: hidden_size wide
+            d50 = cfg.encoder.hidden_size
+            self.separator = Separator(d50, cfg.separator_hidden,
+                                       cfg.talker_numbers)
+            self.serialized_ctc = nn.ModuleDict({
+                str(k): CTCHead(d50, cfg.ctc_odim)
+                for k in range(cfg.talker_numbers)})
+
+
+def ctc_heads(model: SpeechEncoderDecoderModel,
+              cfg: SpeechEncoderDecoderConfig) -> List[CTCHead]:
+    return [model.serialized_ctc[str(k)] for k in range(cfg.talker_numbers)]
 
 
 @dataclass
 class EncodedSpeech:
-    """What the decoder needs, computed once per batch."""
+    """What the decoder and the losses need, computed once per batch."""
     encoder_hidden_states: torch.Tensor   # [B, Ts, H_dec]
     encoder_attention_mask: torch.Tensor  # [B, Ts] True = valid
+    sep_hidden: Optional[List[torch.Tensor]] = None  # K x [B, T0, D50]
+    mask_x0: Optional[torch.Tensor] = None           # [B, T0] True = valid
 
 
 @dataclass
 class SpeechFeats:
-    """The encoder's output, before the bridge (attention mode: the
-    adapter features and their mask; the 50 Hz features and their mask
-    join when the CTC path is ported)."""
-    speech: torch.Tensor    # [B, T8, D] adapter output
-    enc_mask: torch.Tensor  # [B, T8] True = valid
+    """Stage A's output: everything the shared parameters (encoder and
+    separator) produce, before the bridge."""
+    mixed: torch.Tensor                 # [B, T0, D50] 50 Hz features
+    speech: torch.Tensor                # [B, T8, D] adapter output
+    sep_hidden: Optional[List[torch.Tensor]]  # K x [B, T0, D50]
+    enc_mask: torch.Tensor              # [B, T8] True = valid
+    mask_x0: torch.Tensor               # [B, T0] True = valid (conv only)
 
 
 def _proj_to_decoder(model: SpeechEncoderDecoderModel,
@@ -89,25 +107,40 @@ def encode_feats(model: SpeechEncoderDecoderModel,
                  mask_time_indices: Optional[torch.Tensor] = None,
                  deterministic: bool = True,
                  generator: Optional[torch.Generator] = None) -> SpeechFeats:
+    """Stage A: the encoder and, with `talker_ctc`, the separator."""
     check_supported(cfg)
-    speech = wavlm_forward(model.encoder, cfg.encoder, input_values,
-                           audio_mask, mask_time_indices=mask_time_indices,
-                           deterministic=deterministic,
-                           generator=generator).last_hidden_state
+    out = wavlm_forward(model.encoder, cfg.encoder, input_values, audio_mask,
+                        mask_time_indices=mask_time_indices,
+                        deterministic=deterministic, generator=generator)
+    mixed, speech = out.encoder_hidden_state, out.last_hidden_state
     B, T8 = speech.shape[:2]
+    T0 = mixed.shape[1]
     if audio_mask is not None:
         enc_mask = feature_vector_attention_mask(cfg.encoder, T8, audio_mask)
+        mask_x0 = feature_vector_attention_mask(cfg.encoder, T0, audio_mask,
+                                                num_adapter_layers=0)
     else:
         enc_mask = torch.ones((B, T8), dtype=torch.bool, device=speech.device)
-    return SpeechFeats(speech=speech, enc_mask=enc_mask)
+        mask_x0 = torch.ones((B, T0), dtype=torch.bool, device=speech.device)
+    sep_hidden = None
+    if cfg.talker_ctc:
+        sep_hidden = separator_forward(
+            model.separator, mixed, cfg.talker_numbers,
+            lstm_dropout=cfg.separator_dropout, deterministic=deterministic,
+            generator=generator)
+    return SpeechFeats(mixed=mixed, speech=speech, sep_hidden=sep_hidden,
+                       enc_mask=enc_mask, mask_x0=mask_x0)
 
 
 def bridge_features(model: SpeechEncoderDecoderModel,
                     cfg: SpeechEncoderDecoderConfig,
                     feats: SpeechFeats) -> EncodedSpeech:
+    """Stage B: the projection to the decoder's width; the separated
+    streams and the 50 Hz mask pass through to the losses."""
     return EncodedSpeech(
         encoder_hidden_states=_proj_to_decoder(model, feats.speech),
-        encoder_attention_mask=feats.enc_mask)
+        encoder_attention_mask=feats.enc_mask,
+        sep_hidden=feats.sep_hidden, mask_x0=feats.mask_x0)
 
 
 def encode_speech(model: SpeechEncoderDecoderModel,
@@ -131,13 +164,16 @@ def model_forward(model: SpeechEncoderDecoderModel,
                   audio_mask: Optional[torch.Tensor],
                   decoder_input_ids: torch.Tensor, *, splice_index: int = 1,
                   ce_labels: Optional[torch.Tensor] = None,
+                  label_spks: Optional[torch.Tensor] = None,
+                  label_spk_lens: Optional[torch.Tensor] = None,
                   mask_time_indices: Optional[torch.Tensor] = None,
                   deterministic: bool = True,
-                  generator: Optional[torch.Generator] = None
-                  ) -> ForwardOutput:
+                  generator: Optional[torch.Generator] = None,
+                  use_pit: bool = False) -> ForwardOutput:
     """Teacher-forced forward (`speech_encoder_decoder.py:345-367`):
     input_values [B, S], audio_mask [B, S], decoder_input_ids [B, L]
-    (shifted, pad-appended), ce_labels [B, L] (eos inserted). Dropout,
+    (shifted, pad-appended), ce_labels [B, L] (eos inserted); with CTC
+    heads label_spks [K, B, Lk] and label_spk_lens [K, B]. Dropout,
     SpecAugment and the LoRA's input dropout run unless `deterministic`,
     from `generator`."""
     enc = encode_speech(model, cfg, input_values, audio_mask,
@@ -145,8 +181,9 @@ def model_forward(model: SpeechEncoderDecoderModel,
                         deterministic=deterministic, generator=generator)
     return model_forward_from_enc(
         model, cfg, enc, decoder_input_ids, splice_index=splice_index,
-        ce_labels=ce_labels,
-        generator=None if deterministic else generator)
+        ce_labels=ce_labels, label_spks=label_spks,
+        label_spk_lens=label_spk_lens,
+        generator=None if deterministic else generator, use_pit=use_pit)
 
 
 def model_forward_from_enc(model: SpeechEncoderDecoderModel,
@@ -155,12 +192,15 @@ def model_forward_from_enc(model: SpeechEncoderDecoderModel,
                            decoder_input_ids: torch.Tensor, *,
                            splice_index: int = 1,
                            ce_labels: Optional[torch.Tensor] = None,
-                           generator: Optional[torch.Generator] = None
-                           ) -> ForwardOutput:
-    """The decoder over [prefix | speech | suffix] and the loss
+                           label_spks: Optional[torch.Tensor] = None,
+                           label_spk_lens: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None,
+                           use_pit: bool = False) -> ForwardOutput:
+    """The decoder over [prefix | speech | suffix] and the losses
     (`speech_encoder_decoder.py:370-444`). As in the JAX package the
     decoder sees no padding mask in training, only causality; `generator`
-    (training only) drives the LoRA's input dropout."""
+    (training only) drives the LoRA's input dropout. The CTC losses take
+    `enc.sep_hidden` with the 50 Hz lengths of `enc.mask_x0`."""
     check_supported(cfg)
     speech = enc.encoder_hidden_states
     B, Ts = speech.shape[:2]
@@ -177,17 +217,48 @@ def model_forward_from_enc(model: SpeechEncoderDecoderModel,
         lora_dropout=cfg.lora_dropout if lora is not None else 0.0,
         generator=generator)
     loss, aux = None, {}
-    if ce_labels is not None:
-        # the speech span (and in instruct mode the prompt up to <bosr>)
-        # is ignored: labels_full = [ignore * prefix | tail]
-        if cfg.instruct:
-            prefix_len, tail = Ts + splice_index + 1, \
-                ce_labels[:, splice_index + 1:]
-        else:
-            prefix_len, tail = Ts, ce_labels
-        ignore = torch.full((B, prefix_len), cfg.ignore_token_id,
-                            dtype=ce_labels.dtype, device=ce_labels.device)
-        loss, aux = hybrid_loss(cfg.train_mode, cfg.ctc_alpha, logits=logits,
-                                labels=torch.cat([ignore, tail], dim=1),
-                                ignore_id=cfg.ignore_token_id)
+    if ce_labels is not None or cfg.train_mode == "ctc":
+        labels_full = None
+        if ce_labels is not None:
+            # the speech span (and in instruct mode the prompt up to
+            # <bosr>) is ignored: labels_full = [ignore * prefix | tail]
+            if cfg.instruct:
+                prefix_len, tail = Ts + splice_index + 1, \
+                    ce_labels[:, splice_index + 1:]
+            else:
+                prefix_len, tail = Ts, ce_labels
+            ignore = torch.full((B, prefix_len), cfg.ignore_token_id,
+                                dtype=ce_labels.dtype,
+                                device=ce_labels.device)
+            labels_full = torch.cat([ignore, tail], dim=1)
+        hlens = (enc.mask_x0.sum(1, dtype=torch.int32)
+                 if enc.mask_x0 is not None else None)
+        loss, aux = hybrid_loss(
+            cfg.train_mode, cfg.ctc_alpha, logits=logits, labels=labels_full,
+            ignore_id=cfg.ignore_token_id,
+            heads=ctc_heads(model, cfg) if cfg.talker_ctc else None,
+            sep_hidden=enc.sep_hidden, hlens=hlens, label_spks=label_spks,
+            label_spk_lens=label_spk_lens, blank_id=cfg.ctc_blank_id,
+            use_pit=use_pit)
     return ForwardOutput(loss=loss, logits=logits, aux=aux)
+
+
+def forward_ctc(model: SpeechEncoderDecoderModel,
+                cfg: SpeechEncoderDecoderConfig, input_values: torch.Tensor,
+                audio_mask: Optional[torch.Tensor], max_out_len: int = 150
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-shot CTC decode (`speech_encoder_decoder.py:450-473`): each
+    head's argmax path on its separated stream, collapsed. Returns
+    (transcriptions [B, K * max_out_len], head-major blocks; lengths
+    [K, B])."""
+    if not cfg.talker_ctc:
+        raise ValueError("forward_ctc needs talker_ctc CTC heads")
+    feats = encode_feats(model, cfg, input_values, audio_mask)
+    outs, lens = [], []
+    for head, hs in zip(ctc_heads(model, cfg), feats.sep_hidden):
+        col, n = ctc_greedy_collapse(ctc_argmax(head, hs), feats.mask_x0,
+                                     cfg.ctc_blank_id, cfg.pad_token_id,
+                                     max_out_len)
+        outs.append(col)
+        lens.append(n)
+    return torch.cat(outs, dim=1), torch.stack(lens)

@@ -12,7 +12,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 from mtasr_tpu_torch.ops.kernels import (
-    conv_frontend, decode_attention, decode_attention_chunk,
+    conv_frontend, ctc, decode_attention, decode_attention_chunk,
     decode_attention_int8, flash_attention,
 )
 
@@ -27,12 +27,15 @@ WRAPPERS = {
     "flash_attention_bwd_dq": flash_attention.flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention.flash_attention_bwd_dkv,
     "flash_attention_bwd_dpb": flash_attention.flash_attention_bwd_dpb,
+    "ctc_alpha": ctc.ctc_alpha,
+    "ctc_beta_post": ctc.ctc_beta_post,
 }
 # one build function per library (decode_attention_int8 shares the chunk
-# library, the three backward kernels share flash_attention_bwd's)
+# library, the three backward kernels share flash_attention_bwd's, the two
+# CTC kernels ctc's)
 _BUILDS = (conv_frontend.build, flash_attention.build,
            flash_attention.build_bwd, decode_attention.build,
-           decode_attention_chunk.build)
+           decode_attention_chunk.build, ctc.build)
 
 
 def build_all() -> None:

@@ -7,12 +7,16 @@ checkpoint in the repository, so this is the configuration that
 `kv_quant=True` it is the int8 serving leg: the seeded bf16 model
 quantized in place, served with an int8 KV cache.
 
-`build_train` is the same model for attention-mode training, the
-reference recipe's trainability (`cli/finetune_asr.py:80-84`): SpecAugment
-at mask_time_prob 0.05 and the default dropouts, a decoder LoRA on q/k/v/o
-(r 16, alpha 32, float32 as the JAX bench adds it); `train_batch` is a batch
-shaped like the JAX bench's (`bench.py:108-131`): 10 s of noise a row, 24
-label positions, two talkers split by <sc>."""
+`build_train` is the same model for training, the reference recipe's
+trainability (`cli/finetune_asr.py:80-84`): SpecAugment at mask_time_prob
+0.05 and the default dropouts, a decoder LoRA on q/k/v/o (r 16, alpha 32,
+float32 as the JAX bench adds it); attention mode, or with `hybrid=True`
+the JAX bench's flagship recipe (`bench.py:93-100, 283-304`): hybrid
+SOT+CTC (ctc_alpha 0.7) with the separator (hidden 896, LSTM dropout 0.2)
+and two CTC heads of 128265 outputs, trained with PCGrad. `train_batch` is
+a batch shaped like the JAX bench's (`bench.py:108-131`): 10 s of noise a
+row, 24 label positions, two talkers split by <sc> (with `split_speakers`
+also as the per-talker CTC targets)."""
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
@@ -36,14 +40,19 @@ SAMPLING_RATE = 16000
 VOCAB_SIZE = 128264
 
 
-def config(**encoder_kw) -> Tuple[SpeechEncoderDecoderConfig, CharTokenizer]:
+def config(hybrid: bool = False, **encoder_kw
+           ) -> Tuple[SpeechEncoderDecoderConfig, CharTokenizer]:
+    """The full-width config (attention mode, or with `hybrid` the hybrid
+    SOT+CTC recipe with 2 talkers' CTC heads) and its tokenizer."""
     tok = CharTokenizer()
     sp = tok.add_special_tokens(instruct=False)
     dec = llama_1b_config(vocab_size=VOCAB_SIZE, bos_token_id=sp.bos_token_id,
                           eos_token_id=sp.eos_token_id)
     cfg = SpeechEncoderDecoderConfig(
         encoder=wavlm_large_config(**encoder_kw), decoder=dec,
-        train_mode="attention", talker_ctc=False,
+        train_mode="hybrid" if hybrid else "attention", talker_ctc=hybrid,
+        talker_numbers=2, separator_hidden=896, separator_dropout=0.2,
+        ctc_alpha=0.7,
         pad_token_id=sp.pad_token_id, sc_token_id=sp.sc_token_id,
         bos_token_id=sp.bos_token_id, eos_token_id=sp.eos_token_id,
         decoder_start_token_id=sp.bos_token_id)
@@ -52,12 +61,13 @@ def config(**encoder_kw) -> Tuple[SpeechEncoderDecoderConfig, CharTokenizer]:
 
 def build(seed: int = 0, device="cuda",
           dtype: torch.dtype = torch.bfloat16, quantize: Optional[str] = None,
-          kv_quant: bool = False
+          kv_quant: bool = False, hybrid: bool = False
           ) -> Tuple[SpeechEncoderDecoderConfig, torch.nn.Module, Transcriber]:
     """(config, model, greedy Transcriber) with weights from `seed`;
     `quantize` ("w8" / "w8a8") quantizes the decoder in place, `kv_quant`
-    gives the Transcriber an int8 KV cache."""
-    cfg, tok = config(mask_time_prob=0.0)
+    gives the Transcriber an int8 KV cache; `hybrid` adds the separator
+    and the CTC heads (`Transcriber.transcribe_ctc`)."""
+    cfg, tok = config(hybrid, mask_time_prob=0.0)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     model = init_random(cfg, g, device, dtype)
@@ -69,11 +79,12 @@ def build(seed: int = 0, device="cuda",
 
 
 def build_train(seed: int = 0, device="cuda",
-                dtype: torch.dtype = torch.bfloat16
+                dtype: torch.dtype = torch.bfloat16, hybrid: bool = False
                 ) -> Tuple[SpeechEncoderDecoderConfig, torch.nn.Module]:
-    """(config, model) for attention-mode training: WavLM-Large's default
-    SpecAugment and dropouts, a float32 decoder LoRA (r 16, alpha 32)."""
-    cfg, _ = config()
+    """(config, model) for training, attention mode or with `hybrid` the
+    hybrid SOT+CTC recipe: WavLM-Large's default SpecAugment and dropouts,
+    a float32 decoder LoRA (r 16, alpha 32)."""
+    cfg, _ = config(hybrid)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     model = init_random(cfg, g, device, dtype).train()
@@ -82,10 +93,15 @@ def build_train(seed: int = 0, device="cuda",
 
 
 def train_batch(cfg: SpeechEncoderDecoderConfig, batch: int, seconds: int,
-                seed: int = 0) -> Batch:
+                seed: int = 0, split_speakers: Optional[bool] = None
+                ) -> Batch:
     """One training batch (numpy): `seconds` of noise a row, no padding;
     labels of 24 positions, 9 and 10 ids in [3, 40) split by <sc>, through
-    the label surgery; the SpecAugment time mask drawn from `seed`."""
+    the label surgery (`split_speakers`, by default with CTC heads: also
+    label_spks [2, B, 10] and label_spk_lens); the SpecAugment time mask
+    drawn from `seed`."""
+    if split_speakers is None:
+        split_speakers = cfg.talker_ctc
     from mtasr_tpu_torch.data.labels import build_training_arrays
     rng = np.random.default_rng(seed)
     S = SAMPLING_RATE * seconds
@@ -97,7 +113,7 @@ def train_batch(cfg: SpeechEncoderDecoderConfig, batch: int, seconds: int,
         labels, pad_token_id=cfg.pad_token_id,
         decoder_start_token_id=cfg.decoder_start_token_id,
         eos_token_id=cfg.eos_token_id, sc_token_id=cfg.sc_token_id,
-        talker_numbers=cfg.talker_numbers, split_speakers=False)
+        talker_numbers=cfg.talker_numbers, split_speakers=split_speakers)
     splice = arr.pop("splice_index")
     enc = cfg.encoder
     T0 = enc.conv_output_length(S)

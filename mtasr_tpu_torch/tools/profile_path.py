@@ -2,7 +2,8 @@
 
     python -m mtasr_tpu_torch.tools.profile_path [--batch 8] [--steps 32]
         [--quantize w8a8] [--kv_quant] [--trace-dir DIR]
-    python -m mtasr_tpu_torch.tools.profile_path --train [--batch 16]
+    python -m mtasr_tpu_torch.tools.profile_path --train [--hybrid]
+        [--batch 16]
 
 Builds the served model (`full_width.build`; `--quantize` / `--kv_quant`:
 the int8 serving leg), prepares one batch of 6-10 s
@@ -18,7 +19,9 @@ Chrome trace there.
 With `--train`: one attention-mode train step instead (`full_width.
 build_train`, the reference recipe's trainability, a fixed batch of 10 s
 rows, `Trainer`'s step: forward, backward, AdamW), after two warm-up
-steps, timed and profiled the same way.
+steps, timed and profiled the same way. `--hybrid`: the hybrid SOT+CTC
+step of the flagship recipe (`full_width.build_train(hybrid=True)`: the
+separator, two CTC heads, PCGrad's three stages).
 """
 from __future__ import annotations
 
@@ -103,6 +106,8 @@ def main(argv=None) -> None:
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--train", action="store_true",
                     help="profile one full-width train step")
+    ap.add_argument("--hybrid", action="store_true",
+                    help="with --train: the hybrid SOT+CTC step with PCGrad")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_path needs a CUDA device")
@@ -178,9 +183,10 @@ def train_profile(args) -> None:
     from mtasr_tpu_torch.config import DataConfig, TrainingConfig
     from mtasr_tpu_torch.train.loop import Trainer, step_generator
     B = args.batch or 16
-    cfg, model = full_width.build_train(args.seed, "cuda", torch.bfloat16)
+    cfg, model = full_width.build_train(args.seed, "cuda", torch.bfloat16,
+                                        hybrid=args.hybrid)
     tc = TrainingConfig(learning_rate=1e-4, warmup_steps=2, max_steps=1000,
-                        pcgrad=False)
+                        pcgrad=args.hybrid)
     trainer = Trainer(cfg, tc, DataConfig(), model,
                       freeze_kwargs=dict(freeze_decoder=True))
     batch = full_width.train_batch(cfg, B, 10, args.seed)
@@ -199,9 +205,11 @@ def train_profile(args) -> None:
     if trace:
         os.makedirs(args.trace_dir, exist_ok=True)
     _, busy, top = profiled(run, trace, inference=False)
-    record = {"batch": B, "train": True,
+    record = {"batch": B, "train": True, "hybrid": args.hybrid,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
               "device": torch.cuda.get_device_name(0)}
-    _report(f"B={B} train step", "train_step", wall, busy, top, record)
+    _report(f"B={B} {'hybrid ' if args.hybrid else ''}train step",
+            "train_step", wall, busy, top, record)
     print(json.dumps(record), flush=True)
 
 

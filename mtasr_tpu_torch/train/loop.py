@@ -5,9 +5,8 @@ steps over epochs of batches, logging to `metrics.jsonl`, periodic eval
 As in the JAX trainer, every step's randomness is a function of (seed,
 step): its dropout comes from a fresh `torch.Generator` seeded from both,
 and the position in the data stream (epoch, batch in epoch) is kept in
-the state. Checkpointing (`save`, `maybe_resume`, best-model retention)
-comes with hybrid training (ROADMAP.md queue 1, item 11b): those calls
-raise, and `train` saves nothing.
+the state. Checkpointing (`save`, `maybe_resume`, best-model retention) is
+ROADMAP.md queue 1, item 11c: those calls raise, and `train` saves nothing.
 """
 from __future__ import annotations
 
@@ -37,7 +36,8 @@ from mtasr_tpu_torch.utils.wer import Calculator, clean_decoded_text
 logger = logging.getLogger("mtasr_tpu_torch.trainer")
 
 CHECKPOINT_TODO = ("checkpointing (save / resume / best-model retention) is "
-                   "not ported yet (ROADMAP.md queue 1, item 11b)")
+                   "not ported yet (ROADMAP.md queue 1, item 11c: "
+                   "checkpointing and the fine-tuning CLI)")
 
 
 @dataclass
@@ -145,7 +145,8 @@ class Trainer:
                 self.state = TrainState(self.state.step + 1, epoch, bi + 1)
                 samples += batch.arrays["input_values"].shape[0]
                 if self.state.step % self.tc.logging_steps == 0:
-                    m = {k: float(v) for k, v in metrics.items()}
+                    m = {k: (v.tolist() if v.dim() else float(v))
+                         for k, v in metrics.items()}
                     dt = time.perf_counter() - t_start
                     m.update(step=self.state.step, epoch=epoch,
                              samples_per_second=round(samples / dt, 2),

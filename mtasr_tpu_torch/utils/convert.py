@@ -12,7 +12,9 @@ a decoder LoRA subtree (`decoder_lora.*`) becomes `model.decoder_lora`,
 its `__meta__` r and alpha plain attributes. A quantized tree
 (`tree_to_flat(quantize_for_serving(params, ...))`: int8
 `weight_q8a8` / `weight_q8` and f32 `scale` in a linear's slot) loads as
-well: each such slot of the model becomes a `QuantLinear` first.
+well: each such slot of the model becomes a `QuantLinear` first. A
+`talker_ctc` tree's `separator.*` and `serialized_ctc.{k}.ctc_lo.*` keys
+are the port's parameter names as they are.
 
 `init_random` builds a model at full width with random weights from a
 `torch.Generator`, straight on the target device, for runs that have no
@@ -27,6 +29,7 @@ import torch
 
 from mtasr_tpu_torch.config import SpeechEncoderDecoderConfig
 from mtasr_tpu_torch.models.layers import QuantLinear
+from mtasr_tpu_torch.models.separator import init_separator
 from mtasr_tpu_torch.models.speech_encoder_decoder import (
     SpeechEncoderDecoderModel,
 )
@@ -143,7 +146,9 @@ def init_random(cfg: SpeechEncoderDecoderConfig, generator: torch.Generator,
     """A model with random weights, allocated on `device` in `dtype` (no
     float32 copy on the host). Matrices ~ N(0, 1/fan_in), embeddings
     ~ N(0, 0.02^2), biases ~ N(0, 0.02^2), norm scales and the rel-pos gate
-    constants 1. `generator` must live on `device`."""
+    constants 1; a separator gets the JAX init's distributions
+    (`models/separator.py::init_separator`: Xavier projections, the
+    symmetry-breaking bias offsets). `generator` must live on `device`."""
     with torch.device("meta"):
         model = SpeechEncoderDecoderModel(cfg)
     model = model.to(dtype=dtype).to_empty(device=device)
@@ -158,4 +163,6 @@ def init_random(cfg: SpeechEncoderDecoderConfig, generator: torch.Generator,
                 p.normal_(0.0, 0.02, generator=generator)
             else:
                 p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+    if hasattr(model, "separator"):
+        init_separator(model.separator, generator)
     return model.eval()

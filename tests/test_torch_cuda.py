@@ -340,3 +340,103 @@ def test_gradients_flow_through_the_kernel_functions(gen):
     assert cf.conv0_fused.launches == n_conv + 1
     for a, r in zip(got, ref):
         _check(a, r, 2)
+
+
+def _ctc_inputs(g, B, T, V, L, device="cuda"):
+    """log-probs [B, T, V] f32 and a lattice with ragged lengths: row 0
+    full, row 1 ilen 1, row 2 label length 0, row 3 repeated labels, row
+    4 an impossible alignment (L labels with repeats in L frames)."""
+    logits = torch.randn((B, T, V), generator=g, device="cuda") * 2
+    lp = torch.log_softmax(logits, -1).to(device)
+    labels = torch.randint(0, V - 1, (B, L), generator=g,
+                           device="cuda").to(device)
+    ilen = torch.full((B,), T, dtype=torch.int32, device=device)
+    llen = torch.full((B,), L, dtype=torch.int32, device=device)
+    if B >= 5:
+        ilen[1], llen[1] = 1, min(L, 1)
+        llen[2] = 0
+        labels[3, : L // 2 * 2] = labels[3, 0]
+        labels[4] = 1
+        ilen[4] = min(L, T)
+        ilen[0] = T - 3
+    return lp, ilen, labels, llen, V - 1
+
+
+def _ctc_close(out, ref):
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,V,L", [(16, 499, 60, 10), (5, 499, 300, 100),
+                                     (5, 40, 600, 511), (3, 1, 9, 4)])
+def test_ctc_kernels(gen, B, T, V, L):
+    """#11 and #12 against their plain versions (the path's shape, a long
+    label, the largest lattice a block takes, a single frame), and the
+    loss against torch's CTC on the same log-probs."""
+    from mtasr_tpu_torch.ops.kernels import ctc as kc
+    lp, ilen, labels, llen, blank = _ctc_inputs(gen, B, T, V, L)
+    ext, allow = kc.lattice(labels, blank, V)
+    emit = lp.gather(2, ext[:, None].expand(-1, T, -1)).contiguous()
+    n11, n12 = kc.ctc_alpha.launches, kc.ctc_beta_post.launches
+    alpha, final = kc.ctc_alpha(emit, ilen, llen, allow)
+    log_post = kc.ctc_beta_post(emit, alpha, ilen, llen, allow)
+    a_ref, f_ref = kc.ctc_alpha_plain(emit, ilen, llen, allow)
+    p_ref = kc.ctc_beta_post_plain(emit, alpha, ilen, llen, allow)
+    torch.cuda.synchronize()
+    assert (kc.ctc_alpha.launches, kc.ctc_beta_post.launches) == \
+        (n11 + 1, n12 + 1)
+    _ctc_close(alpha, a_ref)
+    _ctc_close(final, f_ref)
+    _ctc_close(log_post, p_ref)
+    loss = kc.zero_infinity_loss(kc.final_ll(final, llen))
+    ref = torch.nn.functional.ctc_loss(
+        lp.transpose(0, 1), labels, ilen, llen, blank=blank,
+        reduction="none", zero_infinity=True)
+    torch.testing.assert_close(loss, ref, rtol=1e-4, atol=1e-3)
+
+
+def test_ctc_losses_on_the_card_equal_the_cpu(gen):
+    """`ctc_loss` and `ctc_loss_from_hidden` (#11 forward, #12 backward on
+    the card) against the same functions on the CPU (plain versions), loss
+    and gradients, with a T the time chunk does not divide."""
+    from mtasr_tpu_torch.ops.ctc import ctc_loss
+    from mtasr_tpu_torch.ops.ctc_fused import ctc_loss_from_hidden
+    B, T, D, V, L = 5, 77, 32, 500, 6
+    lp, ilen, labels, llen, blank = _ctc_inputs(gen, B, T, V, L)
+    hs = torch.randn((B, T, D), generator=gen, device="cuda")
+    w = torch.randn((V, D), generator=gen, device="cuda") * 0.2
+    b = torch.randn((V,), generator=gen, device="cuda") * 0.1
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        x = lp.detach().to(dev).requires_grad_(True)
+        leaves = [t.detach().to(dev).requires_grad_(True)
+                  for t in (hs, w, b)]
+        args = [t.to(dev) for t in (ilen, labels, llen)]
+        l1 = ctc_loss(x, *args, blank)
+        l2 = ctc_loss_from_hidden(*leaves, *args, blank, time_chunk=32)
+        (l1.sum() + l2.sum()).backward()
+        outs[dev] = [l1, l2, x.grad] + [t.grad for t in leaves]
+    # within 1e-4 of each tensor's largest |value|: dW's blank row sums
+    # 385 frames' terms of both signs, where another order moves an element
+    # by 0.2 % of itself (measured on one H100)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        want = want.detach()
+        torch.testing.assert_close(got.detach().cpu(), want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_ctc_wrappers_refuse(gen):
+    from mtasr_tpu_torch.ops.kernels import ctc as kc
+    emit = torch.zeros((2, 5, 1025), device="cuda")
+    allow = torch.zeros((2, 1025), dtype=torch.bool, device="cuda")
+    lens = torch.full((2,), 5, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="S = 1025"):
+        kc.ctc_alpha(emit, lens, lens, allow)
+    emit, allow = emit[:, :, :7], allow[:, :7]
+    with pytest.raises(ValueError, match="contiguous"):
+        kc.ctc_alpha(emit, lens, lens, allow)
+    with pytest.raises(TypeError, match="float32"):
+        kc.ctc_alpha(emit.contiguous().double(), lens, lens,
+                     allow.contiguous())
+    with pytest.raises(TypeError, match="int32"):
+        kc.ctc_alpha(emit.contiguous(), lens.long(), lens,
+                     allow.contiguous())

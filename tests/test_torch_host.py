@@ -73,6 +73,28 @@ def test_config_length_arithmetic_and_from_fields():
         bad.validate()
 
 
+def test_hybrid_config_fields_and_validation_match():
+    """The separator / CTC-head fields and properties of a talker_ctc
+    config, and the same refusals as the JAX config's validate."""
+    ref = tiny_cfg(train_mode="hybrid", talker_ctc=True,
+                   separator_dropout=0.1)
+    port = tconfig.from_fields(tconfig.SpeechEncoderDecoderConfig, ref)
+    _assert_fields_equal(port, ref)
+    port.validate()
+    assert (port.ctc_blank_id, port.ctc_odim) == (ref.ctc_blank_id,
+                                                  ref.ctc_odim)
+    for bad in (dict(talker_ctc=False), dict(talker_numbers=1),
+                dict(talker_ctc=False, train_mode="ctc"),
+                dict(talker_ctc=False, talker_ctc_refine=True)):
+        jbad = dataclasses.replace(ref, **bad)
+        tbad = dataclasses.replace(port, **bad)
+        with pytest.raises(ValueError) as jerr:
+            jbad.validate()
+        with pytest.raises(ValueError) as terr:
+            tbad.validate()
+        assert "talker" in str(jerr.value) and "talker" in str(terr.value)
+
+
 @pytest.mark.parametrize("instruct", [False, True])
 def test_char_tokenizer_matches(instruct):
     jt, tt = jtok.CharTokenizer(), ttok.CharTokenizer()

@@ -2,7 +2,8 @@
 blocks `jax` and `mtasr_tpu`, imports every module of `mtasr_tpu_torch`,
 serves a tiny model on the CPU through `generate` and `Transcriber` with the
 port's own config and tokenizer, then quantized (w8a8, int8 KV cache), and
-takes a train step through `Trainer`, and checks that no kernel was
+takes a train step through `Trainer`, then a hybrid SOT+CTC model through
+a PCGrad `Trainer` step and `transcribe_ctc`, and checks that no kernel was
 launched (CPU tensors take the plain versions). No file of the port, and not
 `chip_smoke.py`, imports jax or the JAX package."""
 import pathlib
@@ -69,7 +70,7 @@ out = generate(model, cfg, wav, amask, max_new_tokens=5,
                gen=GenerationConfig(kv_quant=True))
 assert out.sequences.shape == (2, 5)
 assert set(kernels.launch_counts().values()) == {0}, kernels.launch_counts()
-assert len(kernels.launch_counts()) == 9
+assert len(kernels.launch_counts()) == 11
 # one attention-mode train step through Trainer (fresh model, LoRA)
 from mtasr_tpu_torch.config import TrainingConfig
 from mtasr_tpu_torch.data.pipeline import (PreparedExample,
@@ -84,6 +85,20 @@ trainer = Trainer(cfg, TrainingConfig(max_steps=1, warmup_steps=0),
                   dc, model, freeze_kwargs=dict(freeze_decoder=True))
 trainer.train(lambda: batches_from_examples(ex, cfg, dc, 2))
 assert trainer.state.step == 1
+assert set(kernels.launch_counts().values()) == {0}, kernels.launch_counts()
+# hybrid SOT+CTC with PCGrad, then the one-shot CTC decode
+import dataclasses
+hcfg = dataclasses.replace(cfg, train_mode="hybrid", talker_ctc=True,
+                           separator_hidden=8)
+model = init_random(hcfg, g, "cpu", torch.float32)
+trainer = Trainer(hcfg, TrainingConfig(max_steps=1, warmup_steps=0,
+                                       pcgrad=True),
+                  dc, model, freeze_kwargs=dict(freeze_decoder=True))
+trainer.train(lambda: batches_from_examples(ex, hcfg, dc, 2))
+assert trainer.state.step == 1
+streams = Transcriber(hcfg, model, tok, dc=dc).transcribe_ctc(
+    [wav[0].numpy()], max_out_len=5)
+assert len(streams) == 1 and len(streams[0]) == 2
 assert set(kernels.launch_counts().values()) == {0}, kernels.launch_counts()
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m]}
 assert not loaded & {"jax", "mtasr_tpu"}, loaded

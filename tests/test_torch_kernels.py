@@ -14,6 +14,7 @@ from mtasr_tpu.ops.pallas import decode_attention as jda
 from mtasr_tpu.ops.pallas import flash_attention as jfa
 from mtasr_tpu_torch.ops import kernels
 from mtasr_tpu_torch.ops.kernels import conv_frontend as cf
+from mtasr_tpu_torch.ops.kernels import ctc as kctc
 from mtasr_tpu_torch.ops.kernels import decode_attention as da
 from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
 from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
@@ -259,8 +260,18 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
         fa.flash_attention_bwd_dq(*args) + fa.flash_attention_bwd_dkv(*args)
         + (fa.flash_attention_bwd_dpb(*args),),
         (ref[0], ref[4], ref[1], ref[2], ref[3])))
+    # the CTC lattice kernels' wrappers (#11, #12)
+    _, allow = kctc.lattice(torch.tensor([[3, 3]]), 0, 5)
+    emit = torch.from_numpy(_rand((1, 6, 5), 5))
+    lens = (torch.tensor([6], dtype=torch.int32),
+            torch.tensor([2], dtype=torch.int32))
+    alpha, final = kctc.ctc_alpha(emit, *lens, allow)
+    ref_alpha, ref_final = kctc.ctc_alpha_plain(emit, *lens, allow)
+    assert torch.equal(alpha, ref_alpha) and torch.equal(final, ref_final)
+    assert torch.equal(kctc.ctc_beta_post(emit, alpha, *lens, allow),
+                       kctc.ctc_beta_post_plain(emit, alpha, *lens, allow))
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
-    assert len(kernels.WRAPPERS) == 9
+    assert len(kernels.WRAPPERS) == 11
 
 
 def test_wrappers_refuse_other_devices_and_bad_shapes():

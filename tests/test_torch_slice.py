@@ -143,13 +143,14 @@ def test_unported_routes_raise():
     wav = [np.zeros(4000, np.float32)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.transcribe(wav, num_beams=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.transcribe_ctc(wav)
+    with pytest.raises(ValueError, match="talker_ctc"):
+        tt.transcribe_ctc(wav)          # no CTC heads on this model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transcriber.from_pretrained("exp/model")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpeechEncoderDecoderModel(_port(tiny_cfg(train_mode="hybrid",
-                                                 talker_ctc=True)))
+                                                 talker_ctc=True,
+                                                 ctc_bridge=True)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.generate(tt.model, tt.cfg, torch.zeros(1, 4000), None,
                         gen=tconfig.GenerationConfig(speculative="ctc"))

@@ -467,7 +467,13 @@ def test_trainer_trains_and_evaluates(tmp_path):
 
 
 def test_pcgrad_with_ctc_heads_raises():
+    """PCGrad with CTC heads builds a step (hybrid training is ported,
+    `tests/test_torch_hybrid.py`); a model with the CTC refiner, which is
+    not, is refused with its ROADMAP item."""
     cfg = dataclasses.replace(_port(_cfg()), talker_ctc=True,
                               train_mode="hybrid")
-    with pytest.raises(NotImplementedError, match="11b"):
-        make_train_step(cfg, tconfig.TrainingConfig(pcgrad=True), None)
+    assert callable(make_train_step(cfg, tconfig.TrainingConfig(pcgrad=True),
+                                    None))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        SpeechEncoderDecoderModel(dataclasses.replace(cfg,
+                                                      talker_ctc_refine=True))
