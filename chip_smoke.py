@@ -67,9 +67,12 @@ Every kernel's record carries its error, its time, its plain version's
 time, the least time the card could take (`bound_ms`, from the bytes the
 function must move and the operations it must do at the H100's published
 peaks) and, where one PyTorch call computes the same function, that call's
-time (`library_ms`; the port never calls it). The line before the last is
-the kernels' JSON record; the last line is `{"ok": true, "device":
-{...}}`. Imports nothing of JAX or of the JAX package `mtasr_tpu`: both
+time (`library_ms`; the port never calls it); the records of the flash
+forward and of #5, whose wrappers' host time comes near their kernels',
+also carry `graph_ms` and `library_graph_ms`: the time a call of 20
+captured in one CUDA graph and replayed, on the device alone. The line
+before the last is the kernels' JSON record; the last line is `{"ok":
+true, "device": {...}}`. Imports nothing of JAX or of the JAX package `mtasr_tpu`: both
 are blocked before anything is imported.
 """
 from __future__ import annotations
@@ -175,6 +178,36 @@ def cuda_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
     return sorted(runs)[repeats // 2]
 
 
+def graph_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
+    """ms a call on the device alone: `iters` calls captured in one CUDA
+    graph (after 3 warm-ups on a side stream), replayed between CUDA events,
+    the median of `repeats` replays. A kernel shorter than its wrapper's host
+    time is then timed by the device, not by the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    del graph
+    return sorted(runs)[repeats // 2]
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -204,9 +237,12 @@ def check_err(torch, name, out, ref, n_ulps, step=0.0):
 
 
 def record(torch, card, records, name, source, replaces, err, why,
-           run_kernel, run_plain, bound_ms, library=None, shape=()):
+           run_kernel, run_plain, bound_ms, library=None, shape=(),
+           graph=False):
     """Time the kernel, its plain version and the library call (median of
-    5), and keep the record of `name` (the first one)."""
+    5), and keep the record of `name` (the first one). With `graph`, also
+    the kernel's and the library call's device time from a CUDA graph
+    (`graph_ms`, `library_graph_ms`)."""
     ms, plain_ms = cuda_ms(torch, run_kernel), cuda_ms(torch, run_plain)
     lib_ms = None if library is None else cuda_ms(torch, library)
     say(f"kernel {name}: max_abs_err {err:.6g} ({why}) kernel {ms:.4f} ms "
@@ -217,20 +253,28 @@ def record(torch, card, records, name, source, replaces, err, why,
                      "replaces": replaces, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms[0],
                      "bound_by": bound_ms[1], "library_ms": lib_ms}
+    if graph:
+        g_ms = graph_ms(torch, run_kernel)
+        lib_g = None if library is None else graph_ms(torch, library)
+        records[name].update(graph_ms=g_ms, library_graph_ms=lib_g)
+        say(f"kernel {name}: in a CUDA graph kernel {g_ms:.4f} ms ("
+            f"{bound_ms[0] / g_ms:.3f} of its bound) library "
+            f"{'none' if lib_g is None else f'{lib_g:.4f} ms'} [{card}]")
 
 
 def compare(torch, card, records, name, source, replaces, run_kernel,
             run_plain, n_ulps, step=0.0, why="", keep=True, bound_ms=None,
-            library=None):
+            library=None, graph=False):
     """Within n bf16 ulps at max|ref|, plus `step`. With `keep`, the error,
-    the times and `bound_ms` go into `records` (the first call of a name
-    is kept). Returns the error."""
+    the times (with `graph`, CUDA-graph times too) and `bound_ms` go into
+    `records` (the first call of a name is kept). Returns the error."""
     out = run_kernel()
     err, tol = check_err(torch, name, out, run_plain(), n_ulps, step)
     if keep and name not in records:
         record(torch, card, records, name, source, replaces, err,
                f"tol {tol:.6g} = {n_ulps} bf16 ulp at max|ref|{why}",
-               run_kernel, run_plain, bound_ms, library, tuple(out.shape))
+               run_kernel, run_plain, bound_ms, library, tuple(out.shape),
+               graph)
     else:
         say(f"kernel {name}: max_abs_err {err:.6g} (tol {tol:.6g}) shape "
             f"{tuple(out.shape)}")
@@ -304,7 +348,8 @@ def kernel_phase(torch, card: str, records):
     T, H, D = 499, 16, 64
     q, k, v = randn(BATCH, T, H, D), randn(BATCH, T, H, D), \
         randn(BATCH, T, H, D)
-    pos_bias = randn(H, T, T, scale=0.5)
+    # the table as WavLM builds it once a forward: rows padded to 16 bytes
+    pos_bias = fa.padded_bias(randn(H, T, T, scale=0.5))
     gate = (1 + torch.rand((BATCH, H, T), generator=g, device=dev)).to(bf)
     kv_lens = torch.full((BATCH,), T, dtype=torch.int32, device=dev)
     kv_lens[-1] = 300
@@ -320,7 +365,7 @@ def kernel_phase(torch, card: str, records):
               nbytes(q, k, v, pos_bias, gate, kv_lens, q),
               attention_ops(D, H * T * int(kv_lens.sum())), "bf16"),
           library=lambda: F.scaled_dot_product_attention(
-              qh, kh, vh, attn_mask=bias))
+              qh, kh, vh, attn_mask=bias), graph=True)
 
     # decode step: LLaMA-1B heads, S_max = 1 + 63 + 150 = 214, one short row
     Hq, Hkv, S_max = 32, 8, 214
@@ -402,7 +447,7 @@ def captured_phase(torch, card: str, records, calls) -> None:
                 bound_ms=bound(nbytes(q, kc, vc, mc, q), ops, "bf16"),
                 library=lambda: F.scaled_dot_product_attention(
                     q.transpose(1, 2), kch, vch, attn_mask=mc[:, None],
-                    enable_gqa=True))
+                    enable_gqa=True), graph=True)
         else:
             q, k8, v8, kvs, mc = args
             err = compare(

@@ -1,6 +1,7 @@
-// Tile helpers shared by the flash attention forward (flash_attention.cu)
-// and backward (flash_attention_bwd.cu) kernels. `static`: each library gets
-// its own copy, so no symbol is shared between two loaded libraries.
+// Tile helpers of the flash attention kernels: the lse of an empty row for
+// the forward (flash_attention.cu) and the backward (flash_attention_bwd.cu),
+// the row loader for the backward. `static`: each library gets its own
+// copy, so no symbol is shared between two loaded libraries.
 #pragma once
 
 #include "common.cuh"

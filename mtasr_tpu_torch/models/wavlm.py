@@ -26,7 +26,9 @@ from mtasr_tpu_torch.models.layers import (
     ACT, conv1d, dropout, gelu, group_norm, layer_norm, linear, remat_layer,
 )
 from mtasr_tpu_torch.ops.kernels.conv_frontend import conv0_fused
-from mtasr_tpu_torch.ops.kernels.flash_attention import flash_attention
+from mtasr_tpu_torch.ops.kernels.flash_attention import (
+    flash_attention, padded_bias,
+)
 from mtasr_tpu_torch.ops.relpos import relative_position_bucket
 
 
@@ -316,7 +318,9 @@ def wavlm_encoder_prologue(enc: _Encoder, cfg: WavLMConfig,
                            attention_mask: Optional[torch.Tensor]
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Input masking, positional conv embedding, the non-stable-LN pre-norm
-    and the shared [H, T, T] relative-position bias (contiguous)."""
+    and the shared [H, T, T] relative-position bias, built once for the
+    layers with its rows padded to 16 bytes (`padded_bias`: what the flash
+    kernel's TMA reads)."""
     B, T, E = hidden.shape
     if attention_mask is not None:
         hidden = hidden * attention_mask[:, :, None].to(hidden.dtype)
@@ -332,7 +336,7 @@ def wavlm_encoder_prologue(enc: _Encoder, cfg: WavLMConfig,
                                        cfg.max_bucket_distance,
                                        device=hidden.device)
     table = enc.layers["0"].attention.rel_attn_embed.weight
-    position_bias = table[buckets].permute(2, 0, 1).contiguous()
+    position_bias = padded_bias(table[buckets].permute(2, 0, 1))
     return hidden, position_bias
 
 

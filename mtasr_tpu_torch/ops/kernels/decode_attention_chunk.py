@@ -6,12 +6,13 @@ one-token int8 kernel of `decode_attention_int8.py`.
 The decoder sends every cached forward of 1 < L <= 16 positions here: a
 prefill that short (short audio) or a chunk. `decode_attention_chunk`
 (bf16 cache) and `decode_attention_int8_chunk` (int8 cache) launch the
-CUDA kernel of `csrc/decode_attention_chunk.cu` for CUDA tensors and take
-their plain versions for CPU tensors. The kernel replaces the TPU kernels
-`decode_attention_chunk` (`decode_attention.py:223`, body `_kernel_chunk`
-at `:138-185`) and `decode_attention_int8_chunk` (`:443`, body
-`_kernel_int8_chunk` at `:377-417`); the head of the `.cu` file says what
-bounds it on the H100 and how the design answers that.
+CUDA kernels of `csrc/decode_attention_chunk.cu` for CUDA tensors and
+take their plain versions for CPU tensors. The kernels replace the TPU
+kernels `decode_attention_chunk` (`decode_attention.py:223`, body
+`_kernel_chunk` at `:138-185`; on the tensor cores through `mma.sync`) and
+`decode_attention_int8_chunk` (`:443`, body `_kernel_int8_chunk` at
+`:377-417`); the head of the `.cu` file says what bounds them on the H100
+and how the designs answer that.
 
 The int8 function is not dequantized attention: q is quantized per (row,
 query head), the k scale folds into the scores, the v scale into the
@@ -40,9 +41,9 @@ def build():
 
 
 def smem_bytes(G: int, L: int, S: int, D: int, scores_in_smem: bool) -> int:
-    """Dynamic shared memory of one block (the `.cu` file computes the
-    same): the R = G * L rows' scores when they fit, q, two scales a row,
-    and the p @ v partial sums."""
+    """Dynamic shared memory of one block of the int8 kernel (the `.cu`
+    file computes the same): the R = G * L rows' scores when they fit, q,
+    two scales a row, and the p @ v partial sums."""
     R = G * L
     return 4 * (R * ((S if scores_in_smem else 0) + D + 2) + 512 * G)
 
@@ -130,6 +131,16 @@ def decode_attention_int8_chunk_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
+def scores_scratch(int8: bool, B: int, L: int, S: int, Hq: int, Hkv: int,
+                   D: int) -> int:
+    """Elements of the f32 score scratch a launch needs: the int8 kernel's
+    R x S scores of every block when they do not fit its shared memory,
+    else 0. The bf16 kernel keeps its scores in registers at any S."""
+    if not int8 or smem_bytes(Hq // Hkv, L, S, D, True) <= MAX_SMEM:
+        return 0
+    return B * Hq * L * S
+
+
 def launch(what: str, int8: bool, q: torch.Tensor, k_cache: torch.Tensor,
            v_cache: torch.Tensor, kv_scale, mask: torch.Tensor, L: int,
            dims) -> torch.Tensor:
@@ -138,9 +149,9 @@ def launch(what: str, int8: bool, q: torch.Tensor, k_cache: torch.Tensor,
     int8 kernel); or raise with the reason it does not take them:
     contiguous tensors on one device with 16-byte aligned data, bf16 q (and
     scales), caches int8 or bf16, Hq / Hkv in [1, 8], D a multiple of 4 up
-    to 256, 1 <= L <= 16. When the G * L rows' scores over S keys do not fit
-    the shared memory, they go to a global scratch buffer of
-    4 * B * Hq * L * S bytes instead. Returns an output shaped as q."""
+    to 256, 1 <= L <= 16. For the int8 cache, when the G * L rows' scores
+    over S keys do not fit the shared memory, they go to a global scratch
+    buffer (`scores_scratch`). Returns an output shaped as q."""
     B, S, Hq, Hkv, D = dims
     _build.require_cuda(q, what)
     if not 1 <= L <= MAX_L:
@@ -162,10 +173,9 @@ def launch(what: str, int8: bool, q: torch.Tensor, k_cache: torch.Tensor,
                 t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte "
                              f"aligned on {q.device}")
-    scores = None
-    if smem_bytes(G, L, S, D, True) > MAX_SMEM:
-        scores = torch.empty(B * Hq * L * S, dtype=torch.float32,
-                             device=q.device)
+    n_scratch = scores_scratch(int8, B, L, S, Hq, Hkv, D)
+    scores = (torch.empty(n_scratch, dtype=torch.float32, device=q.device)
+              if n_scratch else None)
     out = torch.empty_like(q)
     lib = build()
     with torch.cuda.device(q.device):

@@ -24,16 +24,19 @@ counts its launches in `launches`.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from mtasr_tpu_torch.ops.attention import dot_product_attention
 from mtasr_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1e30   # the lse of a row with no valid key, as in the JAX kernels
 
-_ARGS = [_build.P] * 8 + [_build.I] * 6 + [_build.F, _build.I, _build.P]
+_ARGS = [_build.P] * 8 + [_build.I] * 6 + [_build.F, _build.I] + \
+    [ctypes.c_longlong] * 2 + [_build.P]
 _BWD_ARGS = [_build.I] + [_build.P] * 11 + [_build.I] * 6 + \
     [_build.F, _build.I, _build.P]
 _DQ, _DKV, _DPB = 0, 1, 2        # the backward library's kernel switch
@@ -166,6 +169,28 @@ def flash_attention_bwd_plain(q, k, v, kv_lens, pos_bias, gate, out, lse,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+def _tma_rows(pos_bias: torch.Tensor) -> bool:
+    """Rows and heads of the table a multiple of 8 elements (16 bytes)
+    apart, columns contiguous: what the forward kernel's TMA reads."""
+    return (pos_bias.stride(2) == 1 and pos_bias.stride(1) % 8 == 0
+            and pos_bias.stride(0) % 8 == 0)
+
+
+def padded_bias(pos_bias: torch.Tensor) -> torch.Tensor:
+    """The [H, T, S] rel-pos table as the forward kernel reads it: the same
+    values (and autograd graph) as a view of storage whose rows are padded
+    to a multiple of 8 elements, since TMA needs 16-byte strides and a row
+    of S = 499 bf16 is 998 bytes. A table already so laid out is returned
+    as it is. WavLM builds its table this way once a forward, so that its
+    24 layers share it; the wrapper pads any other table at each call."""
+    if _tma_rows(pos_bias):
+        return pos_bias
+    S = pos_bias.shape[-1]
+    if S % 8 == 0:
+        return pos_bias.contiguous()
+    return F.pad(pos_bias, (0, -S % 8))[..., :S]
+
+
 def _check(q, k, v, kv_lens, pos_bias, gate):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_attention: q [B, T, Hq, D] and k, v "
@@ -183,9 +208,10 @@ def _check(q, k, v, kv_lens, pos_bias, gate):
         raise ValueError(f"flash_attention: kv_lens must be [{B}]")
 
 
-def _check_cuda(what, q, named, f32=()):
-    """bf16 (f32 for the names in `f32`), on q's device, contiguous; q, k,
-    v and the like 16-byte aligned for the kernels' vector loads."""
+def _check_cuda(what, q, named, f32=(), strided=()):
+    """bf16 (f32 for the names in `f32`), on q's device, contiguous (for the
+    names in `strided`, rows 16 bytes apart: `_tma_rows`); q, k, v and the
+    like 16-byte aligned for the kernels' vector and TMA loads."""
     _build.require_cuda(q, what)
     D = q.shape[-1]
     if D > 128 or D % 8:
@@ -196,9 +222,9 @@ def _check_cuda(what, q, named, f32=()):
         if t.dtype != want or t.device != q.device:
             raise TypeError(f"{what}: {name} must be {want} on {q.device}, "
                             f"got {t.dtype} on {t.device}")
-        if not t.is_contiguous():
+        if not (_tma_rows(t) if name in strided else t.is_contiguous()):
             raise ValueError(f"{what}: {name} must be contiguous")
-        if t.dim() == 4 and t.data_ptr() % 16:
+        if (t.dim() == 4 or name in strided) and t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
 
 
@@ -221,14 +247,15 @@ def _forward(q, k, v, kv_lens, pos_bias, gate, scale, with_lse
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     named = [("q", q), ("k", k), ("v", v)]
-    if pos_bias is not None:
+    has_bias = pos_bias is not None
+    if has_bias:
+        pos_bias = padded_bias(pos_bias)
         named += [("pos_bias", pos_bias), ("gate", gate)]
-    _check_cuda("flash_attention", q, named)
+    _check_cuda("flash_attention", q, named, strided=("pos_bias",))
     lens = _lens(kv_lens, B, S, q.device)
     out = torch.empty_like(q)
     lse = (torch.empty((B * Hq, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    has_bias = pos_bias is not None
     lib = build()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_launch(
@@ -237,7 +264,8 @@ def _forward(q, k, v, kv_lens, pos_bias, gate, scale, with_lse
             gate.data_ptr() if has_bias else None, lens.data_ptr(),
             out.data_ptr(), lse.data_ptr() if with_lse else None,
             B, T, S, Hq, Hkv, D, float(scale), int(has_bias),
-            _build.stream_of(q))
+            pos_bias.stride(1) if has_bias else 0,
+            pos_bias.stride(0) if has_bias else 0, _build.stream_of(q))
     _build.check(lib, code, "flash_attention")
     flash_attention.launches += 1
     return out, lse
@@ -373,6 +401,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, pos_bias, gate, kv_lens, out, lse = ctx.saved_tensors
+        if pos_bias is not None:     # WavLM's row-padded table
+            pos_bias = pos_bias.contiguous()
         dq, dk, dv, dpb, dg = flash_attention_bwd(
             q, k, v, kv_lens, pos_bias, gate, out, lse, dout.contiguous(),
             scale=ctx.scale)
@@ -389,8 +419,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kv_lens [B] masks keys at or past it. Returns [B, T, Hq, D].
     Differentiable in q, k, v, pos_bias and gate.
 
-    On CUDA: q, k, v, pos_bias and gate bf16 and contiguous, D % 8 == 0,
-    D <= 128."""
+    On CUDA: q, k, v, pos_bias and gate bf16 and contiguous (pos_bias may
+    instead be `padded_bias`'s row-padded view), D % 8 == 0, D <= 128."""
     _check(q, k, v, kv_lens, pos_bias, gate)
     if scale is None:
         scale = q.shape[-1] ** -0.5

@@ -61,26 +61,92 @@ def test_conv0_kernel(gen, S, O, fuse):
     _check(out, ref, 1)
 
 
+def _flash_inputs(g, B, T, S, hq, hkv, D, bias, lens):
+    q, k, v = (_randn(g, B, T, hq, D), _randn(g, B, S, hkv, D),
+               _randn(g, B, S, hkv, D))
+    kw = {}
+    if bias:
+        kw["pos_bias"] = _randn(g, hq, T, S, scale=0.5)
+        kw["gate"] = (1 + torch.rand((B, hq, T), generator=g,
+                                     device="cuda")).to(torch.bfloat16)
+    if lens is not None:
+        kw["kv_lens"] = torch.tensor(lens, device="cuda")
+    return q, k, v, kw
+
+
+_SERVE_LENS = (499,) * 7 + (300,)
+
+
 @pytest.mark.parametrize("B,T,S,hq,hkv,D,bias,lens", [
     (3, 700, 700, 8, 2, 128, True, (700, 1, 0)),
     (3, 65, 130, 4, 4, 40, False, None),
     (1, 513, 513, 16, 16, 64, True, (400,)),
+    (8, 499, 499, 16, 16, 64, True, _SERVE_LENS),         # serving
+    (16, 499, 499, 16, 16, 64, True, _SERVE_LENS * 2),    # training
+    (3, 100, 200, 4, 4, 64, True, (137, 1, 0)),   # a partial last tile
+    (2, 130, 150, 8, 2, 40, True, (150, 77)),      # D = 40, GQA, bias
+    (2, 64, 64, 4, 1, 128, False, (64, 5)),        # D = 128, GQA
+    (2, 70, 90, 8, 4, 96, True, None),             # D = 96: a half atom
 ])
 def test_flash_kernel(gen, B, T, S, hq, hkv, D, bias, lens):
     from mtasr_tpu_torch.ops.kernels import flash_attention as fa
-    q, k, v = (_randn(gen, B, T, hq, D), _randn(gen, B, S, hkv, D),
-               _randn(gen, B, S, hkv, D))
-    kw = {}
-    if bias:
-        kw["pos_bias"] = _randn(gen, hq, T, S, scale=0.5)
-        kw["gate"] = (1 + torch.rand((B, hq, T), generator=gen,
-                                     device="cuda")).to(torch.bfloat16)
-    if lens is not None:
-        kw["kv_lens"] = torch.tensor(lens, device="cuda")
+    q, k, v, kw = _flash_inputs(gen, B, T, S, hq, hkv, D, bias, lens)
+    before = fa.flash_attention.launches
     out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
     _check(out, fa.flash_attention_plain(q, k, v, **kw), 4)
     if lens is not None and 0 in lens:       # kv_len 0: the row is zeros
         assert not out[lens.index(0)].any()
+
+
+@pytest.mark.parametrize("B,T,S,hq,hkv,D,bias,lens", [
+    (16, 499, 499, 16, 16, 64, True, _SERVE_LENS * 2),
+    (3, 100, 200, 8, 2, 128, True, (137, 1, 0)),
+    (2, 65, 130, 4, 4, 40, False, None),
+])
+def test_flash_kernel_lse(gen, B, T, S, hq, hkv, D, bias, lens):
+    """The training forward's lse against `flash_attention_lse_plain`
+    (-1e30 exactly for a row with no key), and its output beside it."""
+    from mtasr_tpu_torch.ops.kernels import flash_attention as fa
+    q, k, v, kw = _flash_inputs(gen, B, T, S, hq, hkv, D, bias, lens)
+    out, lse = fa._forward(q, k, v, kw.get("kv_lens"), kw.get("pos_bias"),
+                           kw.get("gate"), D ** -0.5, True)
+    ref = fa.flash_attention_lse_plain(q, k, kw.get("kv_lens"),
+                                       kw.get("pos_bias"), kw.get("gate"))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, ref, rtol=1e-4, atol=1e-3)
+    _check(out, fa.flash_attention_plain(q, k, v, **kw), 4)
+
+
+def test_flash_kernel_reads_the_padded_table_as_the_contiguous_one(gen):
+    """WavLM passes `padded_bias`'s view (rows 16 bytes apart, what TMA
+    reads); a contiguous table of an odd S is padded by the wrapper: both
+    give the same output, bit for bit."""
+    from mtasr_tpu_torch.ops.kernels import flash_attention as fa
+    q, k, v, kw = _flash_inputs(gen, 2, 499, 499, 4, 4, 64, True, (499, 300))
+    out = fa.flash_attention(q, k, v, **kw)
+    kw["pos_bias"] = fa.padded_bias(kw["pos_bias"])
+    assert kw["pos_bias"].stride(1) == 504
+    torch.cuda.synchronize()
+    assert torch.equal(fa.flash_attention(q, k, v, **kw), out)
+
+
+def test_flash_kernel_ignores_what_lies_past_kv_len(gen):
+    """K and V rows at or past kv_len hold NaN, inside the last partial key
+    tile (150 of 192 and 37 of 64 keys) and in tiles wholly past it: the
+    output is finite and equals the plain version on clean inputs."""
+    from mtasr_tpu_torch.ops.kernels import flash_attention as fa
+    lens = (150, 37, 200, 0)
+    q, k, v, kw = _flash_inputs(gen, 4, 90, 200, 4, 2, 64, True, lens)
+    k_nan, v_nan = k.clone(), v.clone()
+    for b, n in enumerate(lens):
+        k_nan[b, n:] = float("nan")
+        v_nan[b, n:] = float("nan")
+    out = fa.flash_attention(q, k_nan, v_nan, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    _check(out, fa.flash_attention_plain(q, k, v, **kw), 4)
 
 
 @pytest.mark.parametrize("S,hq,hkv,D", [(1000, 32, 8, 64), (214, 24, 8, 128),
@@ -157,7 +223,8 @@ def test_decode_int8_kernel(gen, B, S, hq, hkv, D):
                                             (2, 16, 1000, 32, 8, 64)])
 def test_chunk_kernel(gen, int8, B, L, S, hq, hkv, D):
     """S = 1000 at L = 16, G = 4: past the ~810 keys whose scores fit the
-    shared memory, so the scores go to the global scratch."""
+    int8 kernel's shared memory, so its scores go to the global scratch
+    (the bf16 kernel keeps its scores in registers at any S)."""
     from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
     from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
     q = _randn(gen, B, L, hq, D)
@@ -174,6 +241,36 @@ def test_chunk_kernel(gen, int8, B, L, S, hq, hkv, D):
         kc, vc = _randn(gen, B, S, hkv * D), _randn(gen, B, S, hkv * D)
         _check(dc.decode_attention_chunk(q, kc, vc, mask),
                dc.decode_attention_chunk_plain(q, kc, vc, mask), 4)
+
+
+@pytest.mark.parametrize("B,L,S,hq,hkv,D", [
+    (2, 16, 300, 32, 4, 64),     # G = 8, L = 16: 128 rows a kv head
+    (2, 4, 1, 8, 2, 64),         # one cache slot
+    (1, 8, 20000, 32, 8, 64),    # a long cache, scores in registers
+    (2, 3, 70, 4, 2, 36),        # D = 36, padded to 48 for q.k
+    (1, 6, 90, 12, 3, 200),      # D = 200: two passes of 128 columns
+    (1, 5, 50, 8, 8, 256),
+])
+def test_chunk_bf16_kernel_edges(gen, B, L, S, hq, hkv, D):
+    """#5 at the edges of what it takes, under a random mask with one
+    fully masked row: every score is then -1e9 and every key stays in the
+    sum, so the row is the mean of V (p = bf16(1 / S)), as the TPU kernel
+    and the plain version give."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+    q = _randn(gen, B, L, hq, D)
+    kc, vc = _randn(gen, B, S, hkv * D), _randn(gen, B, S, hkv * D)
+    mask = torch.rand((B, L, S), generator=gen, device="cuda") > 0.3
+    mask[:, :, 0] = True
+    mask[0, -1] = False
+    before = dc.decode_attention_chunk.launches
+    out = dc.decode_attention_chunk(q, kc, vc, mask)
+    ref = dc.decode_attention_chunk_plain(q, kc, vc, mask)
+    torch.cuda.synchronize()
+    assert dc.decode_attention_chunk.launches == before + 1
+    _check(out, ref, 4)
+    p = float(torch.tensor(1.0 / S).to(torch.bfloat16))
+    mean = p * vc[0].float().reshape(S, hkv, D).sum(0)
+    _check(out[0, -1], mean.repeat_interleave(hq // hkv, 0), 4)
 
 
 def test_int8_linear_small_batch_pads_to_the_int8_gemm(gen):

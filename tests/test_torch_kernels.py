@@ -222,6 +222,52 @@ def test_chunk_plain_matches_pallas_kernel(L, hq, hkv, int8, pallas_calls):
                                    rtol=1e-5)
 
 
+@pytest.mark.parametrize("L,S,hq,hkv,D,int8_scratch", [
+    (8, 158, 32, 8, 64, False),      # the served short prefill
+    (16, 800, 32, 8, 64, False),
+    (16, 1000, 32, 8, 64, True),     # past ~810 keys at L = 16, G = 4
+    (16, 20000, 64, 8, 256, True),
+    (1, 20000, 32, 8, 64, True),     # #6 over a long cache
+])
+def test_chunk_score_scratch_is_for_the_int8_kernel_only(L, S, hq, hkv, D,
+                                                         int8_scratch):
+    """The bf16 kernel (#5) keeps its scores in registers at any S and gets
+    no scratch; the int8 kernel gets a [B, Hq, L, S] f32 one exactly when
+    its R x S scores do not fit the shared memory."""
+    B = 2
+    assert dc.scores_scratch(False, B, L, S, hq, hkv, D) == 0
+    fits = dc.smem_bytes(hq // hkv, L, S, D, True) <= dc.MAX_SMEM
+    assert fits != int8_scratch
+    assert dc.scores_scratch(True, B, L, S, hq, hkv, D) == \
+        (B * hq * L * S if int8_scratch else 0)
+
+
+@pytest.mark.parametrize("S,permuted", [(499, False), (64, False), (7, True),
+                                        (16, True)])
+def test_padded_bias_has_rows_16_bytes_apart(S, permuted):
+    """The forward kernel's TMA reads the rel-pos table with rows (and
+    heads) a multiple of 8 elements apart: `padded_bias` gives a view of
+    the same values and gradient with such strides, and passes a table
+    already so laid out through as it is (WavLM builds it once a forward)."""
+    t = torch.from_numpy(_rand((3, 5, S), 7))
+    if permuted:
+        t = torch.from_numpy(_rand((5, S, 3), 7)).permute(2, 0, 1)
+    t.requires_grad_(True)
+    p = fa.padded_bias(t)
+    assert p.shape == t.shape and torch.equal(p, t)
+    assert p.stride(2) == 1 and p.stride(1) % 8 == 0 and p.stride(0) % 8 == 0
+    assert fa.padded_bias(p) is p
+    (p * torch.arange(S, dtype=p.dtype)).sum().backward()
+    assert torch.equal(t.grad, torch.arange(S, dtype=p.dtype).expand(t.shape))
+    q = torch.from_numpy(_rand((2, 5, 3, 8), 8))
+    k = torch.from_numpy(_rand((2, S, 3, 8), 9))
+    gate = torch.ones((2, 3, 5))
+    np.testing.assert_array_equal(
+        fa.flash_attention(q, k, k, pos_bias=p.detach(), gate=gate).numpy(),
+        fa.flash_attention(q, k, k, pos_bias=t.detach().contiguous(),
+                           gate=gate).numpy())
+
+
 def test_cpu_tensors_take_the_plain_versions_without_counting():
     kernels.reset_launch_counts()
     wave, w, b, g, bt = _torch(*_conv0_inputs(1, 200, O=64))
