@@ -35,8 +35,10 @@ Phases, one line each, any failure exits non-zero:
    short-prefill request of phase 6 through the int8 chunk kernel (#7);
 8. train kernels: the flash backward kernels #8-#10 against
    `flash_attention_bwd_plain` at the training path's shapes (B = 16,
-   T = S = 499, 16 heads of 64, one short row), beside the yardstick
-   `torch.autograd.grad` of SDPA with the materialised float bias;
+   T = S = 499, 16 heads of 64, one short row, WavLM's row-padded table)
+   and against their own second launch, bit for bit, beside two
+   yardsticks: `torch.autograd.grad` of SDPA with the materialised bias,
+   forward and backward, and its backward alone;
 9. train: WavLM-Large + LLaMA-3.2-1B from seed 0 with the reference
    recipe's trainability (decoder frozen with LoRA r 16 / alpha 32 on
    q/k/v/o, the encoder training but its conv feature extractor,
@@ -67,12 +69,14 @@ Every kernel's record carries its error, its time, its plain version's
 time, the least time the card could take (`bound_ms`, from the bytes the
 function must move and the operations it must do at the H100's published
 peaks) and, where one PyTorch call computes the same function, that call's
-time (`library_ms`; the port never calls it); the records of the flash
-forward and of #5, whose wrappers' host time comes near their kernels',
-also carry `graph_ms` and `library_graph_ms`: the time a call of 20
-captured in one CUDA graph and replayed, on the device alone. The line
-before the last is the kernels' JSON record; the last line is `{"ok":
-true, "device": {...}}`. Imports nothing of JAX or of the JAX package `mtasr_tpu`: both
+time (`library_ms`; the port never calls it). Every record also carries
+`graph_ms` and `library_graph_ms`: the time a call of 20 captured in one
+CUDA graph and replayed, on the device alone, where a short kernel's `ms`
+is its wrapper's host time (`F.ctc_loss`, which a graph cannot hold, is
+recorded in words); the backward kernels' records add SDPA's backward alone
+(`library_bwd_ms`, `library_bwd_graph_ms`). The line before the last is
+the kernels' JSON record; the last line is `{"ok": true, "device":
+{...}}`. Imports nothing of JAX or of the JAX package `mtasr_tpu`: both
 are blocked before anything is imported.
 """
 from __future__ import annotations
@@ -157,55 +161,9 @@ def device_phase(torch) -> str:
     return card
 
 
-def cuda_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
-    """ms a call: CUDA events around `iters` calls after 3 warm-ups, the
-    median of `repeats` such runs. A wrapper whose host time exceeds its
-    kernel's is timed by the host, where a single pause moves the mean of
-    20 calls; the median of the runs steps over it."""
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    runs = []
-    for _ in range(repeats):
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        runs.append(start.elapsed_time(end) / iters)
-    return sorted(runs)[repeats // 2]
-
-
-def graph_ms(torch, fn, iters: int = 20, repeats: int = 5) -> float:
-    """ms a call on the device alone: `iters` calls captured in one CUDA
-    graph (after 3 warm-ups on a side stream), replayed between CUDA events,
-    the median of `repeats` replays. A kernel shorter than its wrapper's host
-    time is then timed by the device, not by the host."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    runs = []
-    for _ in range(repeats):
-        torch.cuda.synchronize()
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        runs.append(start.elapsed_time(end) / iters)
-    del graph
-    return sorted(runs)[repeats // 2]
+def fmt_ms(t) -> str:
+    return "none" if t is None else t if isinstance(t, str) else \
+        f"{t:.4f} ms"
 
 
 def nbytes(*tensors) -> int:
@@ -238,43 +196,50 @@ def check_err(torch, name, out, ref, n_ulps, step=0.0):
 
 def record(torch, card, records, name, source, replaces, err, why,
            run_kernel, run_plain, bound_ms, library=None, shape=(),
-           graph=False):
+           library_no_graph=None, library_bwd=None):
     """Time the kernel, its plain version and the library call (median of
-    5), and keep the record of `name` (the first one). With `graph`, also
-    the kernel's and the library call's device time from a CUDA graph
-    (`graph_ms`, `library_graph_ms`)."""
-    ms, plain_ms = cuda_ms(torch, run_kernel), cuda_ms(torch, run_plain)
-    lib_ms = None if library is None else cuda_ms(torch, library)
+    5), and keep the record of `name` (the first one); then the kernel's
+    and the library call's device time from a CUDA graph (`graph_ms`,
+    `library_graph_ms`, or `library_no_graph`: in words, why the library
+    call is not captured). `library_bwd` (fn, its forward's stream): a second
+    yardstick, `library_bwd_ms` and `library_bwd_graph_ms`."""
+    from mtasr_tpu_torch.tools.timing import cuda_ms, graph_ms
+    ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain)
+    lib_ms = None if library is None else cuda_ms(library)
     say(f"kernel {name}: max_abs_err {err:.6g} ({why}) kernel {ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms library "
-        f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} bound "
+        f"plain {plain_ms:.4f} ms library {fmt_ms(lib_ms)} bound "
         f"{bound_ms[0]:.4f} ms ({bound_ms[1]}) shape {shape} [{card}]")
+    g_ms = graph_ms(run_kernel)
+    lib_g = None if library is None else \
+        library_no_graph or graph_ms(library)
     records[name] = {"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms[0],
-                     "bound_by": bound_ms[1], "library_ms": lib_ms}
-    if graph:
-        g_ms = graph_ms(torch, run_kernel)
-        lib_g = None if library is None else graph_ms(torch, library)
-        records[name].update(graph_ms=g_ms, library_graph_ms=lib_g)
-        say(f"kernel {name}: in a CUDA graph kernel {g_ms:.4f} ms ("
-            f"{bound_ms[0] / g_ms:.3f} of its bound) library "
-            f"{'none' if lib_g is None else f'{lib_g:.4f} ms'} [{card}]")
+                     "bound_by": bound_ms[1], "library_ms": lib_ms,
+                     "graph_ms": g_ms, "library_graph_ms": lib_g}
+    say(f"kernel {name}: in a CUDA graph kernel {fmt_ms(g_ms)} "
+        f"({bound_ms[0] / g_ms:.3f} of its bound) "
+        f"library {fmt_ms(lib_g)} [{card}]")
+    if library_bwd is not None:
+        fn, stream = library_bwd
+        b_ms, b_g = cuda_ms(fn), graph_ms(fn, stream=stream)
+        records[name].update(library_bwd_ms=b_ms, library_bwd_graph_ms=b_g)
+        say(f"kernel {name}: library backward alone {fmt_ms(b_ms)}, in a "
+            f"CUDA graph {fmt_ms(b_g)} [{card}]")
 
 
 def compare(torch, card, records, name, source, replaces, run_kernel,
             run_plain, n_ulps, step=0.0, why="", keep=True, bound_ms=None,
-            library=None, graph=False):
+            library=None):
     """Within n bf16 ulps at max|ref|, plus `step`. With `keep`, the error,
-    the times (with `graph`, CUDA-graph times too) and `bound_ms` go into
-    `records` (the first call of a name is kept). Returns the error."""
+    the times (CUDA-graph times too) and `bound_ms` go into `records` (the
+    first call of a name is kept). Returns the error."""
     out = run_kernel()
     err, tol = check_err(torch, name, out, run_plain(), n_ulps, step)
     if keep and name not in records:
         record(torch, card, records, name, source, replaces, err,
                f"tol {tol:.6g} = {n_ulps} bf16 ulp at max|ref|{why}",
-               run_kernel, run_plain, bound_ms, library, tuple(out.shape),
-               graph)
+               run_kernel, run_plain, bound_ms, library, tuple(out.shape))
     else:
         say(f"kernel {name}: max_abs_err {err:.6g} (tol {tol:.6g}) shape "
             f"{tuple(out.shape)}")
@@ -365,7 +330,7 @@ def kernel_phase(torch, card: str, records):
               nbytes(q, k, v, pos_bias, gate, kv_lens, q),
               attention_ops(D, H * T * int(kv_lens.sum())), "bf16"),
           library=lambda: F.scaled_dot_product_attention(
-              qh, kh, vh, attn_mask=bias), graph=True)
+              qh, kh, vh, attn_mask=bias))
 
     # decode step: LLaMA-1B heads, S_max = 1 + 63 + 150 = 214, one short row
     Hq, Hkv, S_max = 32, 8, 214
@@ -447,7 +412,7 @@ def captured_phase(torch, card: str, records, calls) -> None:
                 bound_ms=bound(nbytes(q, kc, vc, mc, q), ops, "bf16"),
                 library=lambda: F.scaled_dot_product_attention(
                     q.transpose(1, 2), kch, vch, attn_mask=mc[:, None],
-                    enable_gqa=True), graph=True)
+                    enable_gqa=True))
         else:
             q, k8, v8, kvs, mc = args
             err = compare(
@@ -751,12 +716,13 @@ BWD_REPLACES = {"flash_attention_bwd_dq":
 
 def train_kernel_phase(torch, card: str, records) -> None:
     """#8, #9 and #10 against `flash_attention_bwd_plain` at the training
-    path's shapes (B = 16, T = S = 499, 16 heads of 64, a gated bias, one
-    row of 300 keys), fed the same forward output and lse; the forward
-    kernel and its lse at B = 16 as well. Beside them the yardstick: one
-    `torch.autograd.grad` of SDPA (forward and backward) with the gated
-    bias materialised [B, H, T, S] in bf16, which gives dq, dk, dv and the
-    whole bias gradient."""
+    path's shapes (B = 16, T = S = 499, 16 heads of 64, a gated bias in
+    WavLM's row-padded table, one row of 300 keys), fed the same forward
+    output and lse; the forward kernel and its lse at B = 16 as well.
+    Beside them the yardsticks: one `torch.autograd.grad` of SDPA (forward
+    and backward) with the gated bias materialised [B, H, T, S] in bf16,
+    which gives dq, dk, dv and the whole bias gradient; and that backward
+    alone, from one forward kept with `retain_graph`."""
     import torch.nn.functional as F
 
     from mtasr_tpu_torch.ops.kernels import flash_attention as fa
@@ -769,7 +735,8 @@ def train_kernel_phase(torch, card: str, records) -> None:
         return (torch.randn(shape, generator=g, device="cuda") * scale).to(bf)
 
     q, k, v, dout = (randn(B, T, H, D) for _ in range(4))
-    pos_bias = randn(H, T, T, scale=0.5)
+    # the table as WavLM builds it once a forward: rows padded to 16 bytes
+    pos_bias = fa.padded_bias(randn(H, T, T, scale=0.5))
     gate = (1 + torch.rand((B, H, T), generator=g, device="cuda")).to(bf)
     kv_lens = torch.full((B,), T, dtype=torch.int32, device="cuda")
     kv_lens[-1] = 300
@@ -795,6 +762,15 @@ def train_kernel_phase(torch, card: str, records) -> None:
     say("kernel flash backward vs plain: " + ", ".join(
         f"{n} {e:.6g} (tol {t:.6g})" for n, (e, t) in errs.items())
         + f" ({BWD_ULPS} bf16 ulps at max|ref|)")
+    again = (*fa.flash_attention_bwd_dq(*args, delta=delta),
+             *fa.flash_attention_bwd_dkv(*args, delta=delta),
+             fa.flash_attention_bwd_dpb(*args, delta=delta))
+    for name, first, second in zip(("dq", "dg", "dk", "dv", "dpb"),
+                                   (dq, dg, dk, dv, dpb), again):
+        if not torch.equal(first, second):
+            fail(f"flash backward {name}: a second launch on the same "
+                 "inputs gave other bits")
+    say("kernel flash backward: a second launch gave the same bits")
 
     # the yardstick: SDPA forward + backward with the bias materialised
     leaves = [t.transpose(1, 2).detach().requires_grad_(True)
@@ -805,6 +781,18 @@ def train_kernel_phase(torch, card: str, records) -> None:
     def library():
         o = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
         return torch.autograd.grad(o, leaves + [bias], dout_h)
+
+    # the backward alone: its ops run on the forward's stream, where the
+    # graph is captured
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        o_kept = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+    torch.cuda.current_stream().wait_stream(side)
+
+    def library_bwd():
+        return torch.autograd.grad(o_kept, leaves + [bias], dout_h,
+                                   retain_graph=True)
 
     n_keys = H * T * int(kv_lens.sum())      # valid (query, head, key)
     in_bytes = nbytes(q, k, v, pos_bias, gate, kv_lens, lse, delta, dout)
@@ -825,8 +813,8 @@ def train_kernel_phase(torch, card: str, records) -> None:
                e, f"tol {BWD_ULPS} bf16 ulps at max|ref| each; plain = all "
                "five gradients",
                kern, plain, bound(in_bytes + out_bytes, n_ops, "bf16"),
-               library, (B, T, H, D))
-    del leaves, bias
+               library, (B, T, H, D), library_bwd=(library_bwd, side))
+    del leaves, bias, o_kept
     torch.cuda.synchronize()
 
 
@@ -961,6 +949,9 @@ def train_phase(torch, card: str, launches) -> None:
 CTC_SOURCE = "mtasr_tpu_torch/csrc/ctc.cu"
 CTC_REPLACES = {"ctc_alpha": "mtasr_tpu/ops/pallas/ctc_kernel.py:206",
                 "ctc_beta_post": "mtasr_tpu/ops/pallas/ctc_kernel.py:271"}
+# F.ctc_loss reads the lengths on the host (a synchronisation), which a
+# CUDA graph cannot hold
+CTC_NO_GRAPH = "not captured: F.ctc_loss reads its lengths on the host"
 
 
 def ctc_inputs(torch, g, B, T, V, L, ragged):
@@ -990,6 +981,7 @@ def ctc_kernel_phase(torch, card: str, records, cfg, batch) -> None:
     import torch.nn.functional as F
 
     from mtasr_tpu_torch.ops.kernels import ctc as kc
+    from mtasr_tpu_torch.tools.timing import cuda_ms
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 5)
     B, T, V = TRAIN_BATCH, cfg.encoder.conv_output_length(SR * AUDIO_S), \
@@ -1054,9 +1046,12 @@ def ctc_kernel_phase(torch, card: str, records, cfg, batch) -> None:
                bound(nbytes(emit, alpha, final) + small, ops, "f32"),
                lambda: F.ctc_loss(lp_t, labels, ilen, llen,
                                   blank=cfg.ctc_blank_id, reduction="none",
-                                  zero_infinity=True), (B, T, S))
+                                  zero_infinity=True), (B, T, S),
+               CTC_NO_GRAPH)
+        with_gather = cuda_ms(lambda: kc.ctc_alpha(gather(), ilen, llen,
+                                                   allow))
         say(f"kernel ctc_alpha with its gather from [{B}, {T}, {V}] "
-            f"log-probs: {cuda_ms(torch, lambda: kc.ctc_alpha(gather(), ilen, llen, allow)):.4f} ms")
+            f"log-probs: {with_gather:.4f} ms")
         record(torch, card, records, "ctc_beta_post", CTC_SOURCE,
                CTC_REPLACES["ctc_beta_post"], errs["log_post"],
                f"rtol {CTC_RTOL} + atol {CTC_ATOL}; library = F.ctc_loss "
@@ -1065,7 +1060,7 @@ def ctc_kernel_phase(torch, card: str, records, cfg, batch) -> None:
                lambda: kc.ctc_beta_post_plain(emit, alpha, ilen, llen,
                                               allow),
                bound(nbytes(emit, alpha, log_post) + small, ops, "f32"),
-               library_bwd, (B, T, S))
+               library_bwd, (B, T, S), CTC_NO_GRAPH)
         del lp_g
     del lp, emit, alpha, log_post
     torch.cuda.empty_cache()

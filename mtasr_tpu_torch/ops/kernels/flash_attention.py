@@ -12,10 +12,14 @@ probabilities from it and launches three kernels:
 * `flash_attention_bwd_dq` (#8) replaces `_bwd_dq_kernel` (call
   `flash_attention.py:640`): dq, and dg, the gradient of the per-query gate;
 * `flash_attention_bwd_dkv` (#9) replaces `_bwd_dkv_kernel` (`:664`): dk
-  and dv for each q head, the GQA group summed here afterwards (`:673-674`);
+  and dv for each q head, in bf16 without GQA, else in f32 with the group
+  summed here afterwards (`:673-674`);
 * `flash_attention_bwd_dpb` (#10) replaces `_bwd_dpb_kernel` (`:711`):
   dpb, the gradient of the shared [H, T, S] rel-pos table, summed over the
   batch.
+
+Every kernel reads the table through its strides, so WavLM's row-padded
+copy (`padded_bias`) reaches the backward as it is.
 
 The forward kernel replaces `_flash_forward_1s` (`:266`) and
 `_flash_forward` (`:349`). Each .cu file's note says what bounds its
@@ -38,7 +42,7 @@ NEG_INF = -1e30   # the lse of a row with no valid key, as in the JAX kernels
 _ARGS = [_build.P] * 8 + [_build.I] * 6 + [_build.F, _build.I] + \
     [ctypes.c_longlong] * 2 + [_build.P]
 _BWD_ARGS = [_build.I] + [_build.P] * 11 + [_build.I] * 6 + \
-    [_build.F, _build.I, _build.P]
+    [_build.F, _build.I] + [ctypes.c_longlong] * 2 + [_build.P]
 _DQ, _DKV, _DPB = 0, 1, 2        # the backward library's kernel switch
 
 
@@ -171,18 +175,19 @@ def flash_attention_bwd_plain(q, k, v, kv_lens, pos_bias, gate, out, lse,
 # ---------------------------------------------------------------------------
 def _tma_rows(pos_bias: torch.Tensor) -> bool:
     """Rows and heads of the table a multiple of 8 elements (16 bytes)
-    apart, columns contiguous: what the forward kernel's TMA reads."""
+    apart, columns contiguous: what the kernels' TMA reads."""
     return (pos_bias.stride(2) == 1 and pos_bias.stride(1) % 8 == 0
             and pos_bias.stride(0) % 8 == 0)
 
 
 def padded_bias(pos_bias: torch.Tensor) -> torch.Tensor:
-    """The [H, T, S] rel-pos table as the forward kernel reads it: the same
-    values (and autograd graph) as a view of storage whose rows are padded
-    to a multiple of 8 elements, since TMA needs 16-byte strides and a row
-    of S = 499 bf16 is 998 bytes. A table already so laid out is returned
-    as it is. WavLM builds its table this way once a forward, so that its
-    24 layers share it; the wrapper pads any other table at each call."""
+    """The [H, T, S] rel-pos table as the kernels read it: the same values
+    (and autograd graph) as a view of storage whose rows are padded to a
+    multiple of 8 elements, since TMA needs 16-byte strides and a row of
+    S = 499 bf16 is 998 bytes. A table already so laid out is returned as
+    it is. WavLM builds its table this way once a forward, so that its 24
+    layers share it, forward and backward; the wrappers pad any other table
+    at each call."""
     if _tma_rows(pos_bias):
         return pos_bias
     S = pos_bias.shape[-1]
@@ -277,14 +282,15 @@ def _bwd_launch(which, what, q, k, v, kv_lens, pos_bias, gate, lse, delta,
     S, Hkv = k.shape[1], k.shape[2]
     named = [("q", q), ("k", k), ("v", v), ("dout", dout), ("lse", lse),
              ("delta", delta)]
-    if pos_bias is not None:
+    has_bias = pos_bias is not None
+    if has_bias:
+        pos_bias = padded_bias(pos_bias)
         named += [("pos_bias", pos_bias), ("gate", gate)]
-    _check_cuda(what, q, named, f32=("lse", "delta"))
+    _check_cuda(what, q, named, f32=("lse", "delta"), strided=("pos_bias",))
     if tuple(lse.shape) != (B * Hq, T) or tuple(delta.shape) != (B, Hq, T):
         raise ValueError(f"{what}: lse must be {(B * Hq, T)} and delta "
                          f"{(B, Hq, T)}")
     lens = _lens(kv_lens, B, S, q.device)
-    has_bias = pos_bias is not None
     lib = build_bwd()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_bwd_launch(
@@ -294,7 +300,8 @@ def _bwd_launch(which, what, q, k, v, kv_lens, pos_bias, gate, lse, delta,
             lse.data_ptr(), delta.data_ptr(), dout.data_ptr(),
             out_a.data_ptr(), None if out_b is None else out_b.data_ptr(),
             B, T, S, Hq, Hkv, D, float(scale), int(has_bias),
-            _build.stream_of(q))
+            pos_bias.stride(1) if has_bias else 0,
+            pos_bias.stride(0) if has_bias else 0, _build.stream_of(q))
     _build.check(lib, code, what)
 
 
@@ -332,8 +339,9 @@ def flash_attention_bwd_dq(q, k, v, kv_lens, pos_bias, gate, out, lse, dout,
 
 def flash_attention_bwd_dkv(q, k, v, kv_lens, pos_bias, gate, out, lse, dout,
                             *, scale=None, delta=None):
-    """Kernel #9: (dk, dv). The kernel writes each q head's f32 dk / dv;
-    the GQA group is summed and cast here, as the JAX package does."""
+    """Kernel #9: (dk, dv). Without GQA the kernel writes them in bf16;
+    with a group it writes each q head's f32 dk / dv, and the group is
+    summed and cast here, as the JAX package does."""
     gate, scale = _bwd_prologue(q, pos_bias, gate, scale)
     if q.device.type == "cpu":
         _, dk, dv, _, _ = flash_attention_bwd_plain(
@@ -343,27 +351,31 @@ def flash_attention_bwd_dkv(q, k, v, kv_lens, pos_bias, gate, out, lse, dout,
     delta = _delta(dout, out) if delta is None else delta
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    dk_h = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
+    dt = k.dtype if Hq == Hkv else torch.float32
+    dk_h = torch.empty((B, S, Hq, D), dtype=dt, device=q.device)
     dv_h = torch.empty_like(dk_h)
     _bwd_launch(_DKV, "flash_attention_bwd_dkv", q, k, v, kv_lens, pos_bias,
                 gate, lse, delta, dout, dk_h, dv_h, scale)
     flash_attention_bwd_dkv.launches += 1
-    if Hq != Hkv:
-        dk_h = dk_h.reshape(B, S, Hkv, Hq // Hkv, D).sum(3)
-        dv_h = dv_h.reshape(B, S, Hkv, Hq // Hkv, D).sum(3)
+    if Hq == Hkv:
+        return dk_h, dv_h
+    dk_h = dk_h.reshape(B, S, Hkv, Hq // Hkv, D).sum(3)
+    dv_h = dv_h.reshape(B, S, Hkv, Hq // Hkv, D).sum(3)
     return dk_h.to(k.dtype), dv_h.to(v.dtype)
 
 
 def flash_attention_bwd_dpb(q, k, v, kv_lens, pos_bias, gate, out, lse, dout,
                             *, scale=None, delta=None):
-    """Kernel #10: dpb [Hq, T, S], summed over the batch in batch order."""
+    """Kernel #10: dpb [Hq, T, S] (contiguous), summed over the batch in
+    batch order."""
     gate, scale = _bwd_prologue(q, pos_bias, gate, scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, kv_lens, pos_bias, gate, out, lse, dout, scale=scale,
             delta=delta)[3]
     delta = _delta(dout, out) if delta is None else delta
-    dpb = torch.empty_like(pos_bias)
+    dpb = torch.empty(pos_bias.shape, dtype=pos_bias.dtype,
+                      device=pos_bias.device)
     _bwd_launch(_DPB, "flash_attention_bwd_dpb", q, k, v, kv_lens, pos_bias,
                 gate, lse, delta, dout, dpb, None, scale)
     flash_attention_bwd_dpb.launches += 1
@@ -379,6 +391,8 @@ def flash_attention_bwd(q, k, v, kv_lens, pos_bias, gate, out, lse, dout, *,
                                          out, lse, dout, scale=scale)
     delta = _delta(dout, out)
     kw = dict(scale=scale, delta=delta)
+    if pos_bias is not None:       # a table of odd S padded once, not thrice
+        pos_bias = padded_bias(pos_bias)
     args = (q, k, v, kv_lens, pos_bias, gate, out, lse, dout)
     dq, dg = flash_attention_bwd_dq(*args, **kw)
     dk, dv = flash_attention_bwd_dkv(*args, **kw)
@@ -401,8 +415,6 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, pos_bias, gate, kv_lens, out, lse = ctx.saved_tensors
-        if pos_bias is not None:     # WavLM's row-padded table
-            pos_bias = pos_bias.contiguous()
         dq, dk, dv, dpb, dg = flash_attention_bwd(
             q, k, v, kv_lens, pos_bias, gate, out, lse, dout.contiguous(),
             scale=ctx.scale)

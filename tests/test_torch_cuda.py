@@ -11,7 +11,9 @@ largest |ref|; attention rounds p at another point than its plain version,
 so 4 ulps; the int8 kernels' products are exact, and `_check_int8` allows
 the one int8 step of p that another order of the softmax's sums can
 flip."""
+import contextlib
 import math
+import warnings
 
 import pytest
 import torch
@@ -342,11 +344,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                                   v8.bfloat16(), mc[:, :4])
 
 
-def _flash_bwd_inputs(g, B, T, S, hq, hkv, D, bias, lens):
+def _flash_bwd_inputs(g, B, T, S, hq, hkv, D, bias, lens, padded=False):
+    """With `padded`, the table is `padded_bias`'s row-padded view, as WavLM
+    passes it."""
     from mtasr_tpu_torch.ops.kernels import flash_attention as fa
     q, k, v = (_randn(g, B, T, hq, D), _randn(g, B, S, hkv, D),
                _randn(g, B, S, hkv, D))
     pb = _randn(g, hq, T, S, scale=0.5) if bias else None
+    if padded:
+        pb = fa.padded_bias(pb)
     gate = ((1 + torch.rand((B, hq, T), generator=g, device="cuda"))
             .to(torch.bfloat16) if bias else None)
     kv = torch.tensor(lens, device="cuda") if lens is not None else None
@@ -357,20 +363,28 @@ def _flash_bwd_inputs(g, B, T, S, hq, hkv, D, bias, lens):
     return q, k, v, kv, pb, gate, out, lse, dout
 
 
-@pytest.mark.parametrize("B,T,S,hq,hkv,D,bias,lens", [
-    (3, 130, 130, 4, 4, 64, True, (130, 1, 0)),
-    (2, 200, 1000, 8, 2, 64, True, (1000, 555)),
-    (2, 77, 93, 4, 1, 128, False, (93, 0)),
-    (1, 499, 499, 16, 16, 64, True, None),
+@pytest.mark.parametrize("B,T,S,hq,hkv,D,bias,lens,padded", [
+    (3, 130, 130, 4, 4, 64, True, (130, 1, 0), False),
+    (2, 200, 1000, 8, 2, 64, True, (1000, 555), False),
+    (2, 77, 93, 4, 1, 128, False, (93, 0), False),
+    (1, 499, 499, 16, 16, 64, True, None, False),
+    (2, 499, 499, 16, 16, 64, True, (499, 300), True),   # WavLM's table
+    (2, 100, 70, 4, 4, 40, True, (70, 33), True),        # D 40, S < T
+    (2, 70, 150, 8, 4, 96, True, (150, 1), True),        # D 96, S > T
+    (2, 65, 130, 4, 4, 128, True, (130, 0), True),       # D 128, bias
+    (2, 90, 80, 8, 2, 64, True, (80, 17), False),        # GQA 4
+    (3, 64, 64, 2, 2, 64, True, (64, 63, 1), False),     # whole tiles
 ])
-def test_flash_bwd_kernels(gen, B, T, S, hq, hkv, D, bias, lens):
+def test_flash_bwd_kernels(gen, B, T, S, hq, hkv, D, bias, lens, padded):
     """#8, #9, #10 against `flash_attention_bwd_plain`; the forward's lse
     against the plain lse; a kv_len-0 row gives zero gradients. bf16
     outputs: 4 ulps at max|ref| (ds and p round to bf16 before the
-    products on both sides, in another order of f32 sums)."""
+    products on both sides, in another order of f32 sums). Head dims 40 to
+    128, T and S off the 64-row tiles on either side of each other, kv_len
+    0 and 1, GQA groups 1, 2 and 4, the row-padded table."""
     from mtasr_tpu_torch.ops.kernels import flash_attention as fa
     q, k, v, kv, pb, gate, out, lse, dout = _flash_bwd_inputs(
-        gen, B, T, S, hq, hkv, D, bias, lens)
+        gen, B, T, S, hq, hkv, D, bias, lens, padded)
     o_k, lse_k = fa._forward(q, k, v, kv, pb, gate, D ** -0.5, True)
     torch.cuda.synchronize()
     assert float((lse_k - lse).abs().max()) < 2e-2
@@ -398,6 +412,154 @@ def test_flash_bwd_kernels(gen, B, T, S, hq, hkv, D, bias, lens):
         b = lens.index(0)
         for t in (dq[b], dk[b], dv[b]):
             assert bool(torch.isfinite(t).all()) and not t.any()
+
+
+def _nan_after(t, extra=64):
+    """t's values as the prefix of a buffer that holds NaN past its end."""
+    buf = torch.full((t.numel() + extra,), float("nan"), dtype=t.dtype,
+                     device=t.device)
+    buf[:t.numel()] = t.flatten()
+    return buf[:t.numel()].view(t.shape)
+
+
+def test_flash_bwd_kernels_ignore_what_lies_past_kv_len_and_t(gen):
+    """NaN in the K and V rows at or past kv_len (inside the last partial
+    key tile and in tiles wholly past it), in the table's padding slots
+    past S and in the memory past the end of q, dO, lse, delta and the
+    gate (past T of the last row): #8, #9 and #10 give finite gradients
+    equal to the plain version's on clean inputs."""
+    from mtasr_tpu_torch.ops.kernels import flash_attention as fa
+    B, T, S, H, D, lens = 4, 90, 200, 4, 64, (150, 37, 200, 0)
+    q, k, v, kv, pb, gate, out, lse, dout = _flash_bwd_inputs(
+        gen, B, T, S, H, H, D, True, lens)
+    k_nan, v_nan = k.clone(), v.clone()
+    for b, n in enumerate(lens):
+        k_nan[b, n:] = float("nan")
+        v_nan[b, n:] = float("nan")
+    full = torch.full((H, T, 208), float("nan"), dtype=pb.dtype,
+                      device="cuda")
+    full[..., :S] = pb
+    pb_nan = full[..., :S]                   # rows 208 apart, NaN past S
+    got_args = (_nan_after(q), k_nan, v_nan, kv, pb_nan, _nan_after(gate),
+                out, _nan_after(lse), _nan_after(dout))
+    ref = fa.flash_attention_bwd_plain(q, k, v, kv, pb, gate, out, lse, dout)
+    delta = _nan_after(fa._delta(dout, out))
+    dq, dg = fa.flash_attention_bwd_dq(*got_args, delta=delta)
+    dk, dv = fa.flash_attention_bwd_dkv(*got_args, delta=delta)
+    dpb = fa.flash_attention_bwd_dpb(*got_args, delta=delta)
+    torch.cuda.synchronize()
+    for got, want in zip((dq, dk, dv, dpb, dg), ref):
+        assert bool(torch.isfinite(got).all())
+        _check(got, want, 4)
+
+
+@pytest.mark.parametrize("B,T,S,hq,hkv,lens", [
+    (4, 499, 499, 16, 16, (499, 300, 499, 1)),   # the training shape
+    (2, 200, 300, 8, 2, (300, 111)),             # GQA: f32 per head
+])
+def test_flash_bwd_kernels_give_the_same_bits_every_run(gen, B, T, S, hq,
+                                                        hkv, lens):
+    """#8, #9 and #10 launched twice on the same inputs give equal bits: no
+    atomics, and no race in #8's ring or #9's double buffer of lse / delta
+    / gate would stay hidden under a tolerance."""
+    from mtasr_tpu_torch.ops.kernels import flash_attention as fa
+    args = _flash_bwd_inputs(gen, B, T, S, hq, hkv, 64, True, lens, True)
+    delta = fa._delta(args[8], args[6])
+    runs = [(*fa.flash_attention_bwd_dq(*args, delta=delta),
+             *fa.flash_attention_bwd_dkv(*args, delta=delta),
+             fa.flash_attention_bwd_dpb(*args, delta=delta))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dg", "dk", "dv", "dpb"), *runs):
+        assert torch.equal(a, b), name
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """ATen and cuDNN on their deterministic algorithms (their defaults may
+    sum in another order from run to run: two hybrid steps then differ by
+    a rel-L2 of about 6e-4); yields the warnings of ops that have none."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.backends.cudnn.benchmark = saved[1]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def _hybrid_step_grads(remat: bool):
+    """(loss, {name: f32 gradient}, launch counts) of one hybrid PCGrad
+    step at full width cut to 2 encoder and 2 decoder layers, batch 2 x
+    2 s, dropout and SpecAugment on, weights and dropout from fixed seeds:
+    the projected head gradients on the shared parameters, the total
+    loss's on the rest."""
+    from mtasr_tpu_torch.ops import kernels
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.train import train_step as ts
+    from mtasr_tpu_torch.train.freeze import (
+        apply_trainable_mask, trainable_mask,
+    )
+    from mtasr_tpu_torch.train.lora import init_decoder_lora
+    from mtasr_tpu_torch.utils.convert import init_random
+    cfg, _ = full_width.config(hybrid=True, num_hidden_layers=2)
+    cfg.decoder.num_hidden_layers = 2
+    cfg.encoder.remat = remat
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    model = init_random(cfg, g, "cuda", torch.bfloat16).train()
+    init_decoder_lora(model, g, r=16, alpha=32.0)
+    apply_trainable_mask(model, trainable_mask(
+        model, train_mode="hybrid", freeze_decoder=True))
+    batch = full_width.train_batch(cfg, 2, 2, seed=0)
+    t = {n: torch.from_numpy(a).cuda() for n, a in batch.arrays.items()
+         if n != "prompt_ids"}
+    shared, rest = ts._split_params(model)
+    names = {id(p): n for n, p in model.named_parameters()}
+    g.manual_seed(1)                           # the dropout stream
+    kernels.reset_launch_counts()
+    out, head_grads, g_rest = ts._three_stage(model, cfg, t, 1, g, shared,
+                                              rest)
+    grads = {names[id(p)]: x.float() for p, x in
+             zip(shared + rest, ts.pcgrad_project(head_grads) + g_rest)}
+    torch.cuda.synchronize()
+    return float(out.loss.detach()), grads, kernels.launch_counts()
+
+
+def _rel(a, b):
+    num = sum(float((a[n] - b[n]).pow(2).sum()) for n in b)
+    return math.sqrt(num / sum(float(x.pow(2).sum()) for x in b.values()))
+
+
+def test_hybrid_step_with_remat_equals_the_step_without(gen, monkeypatch):
+    """With the encoder's remat each layer's forward runs again in the
+    backward (the flash forward, then #8-#10 on its lse). On deterministic
+    algorithms two steps without remat give the same bits, and so does the
+    step with remat: the same loss and gradients."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    with _deterministic() as caught:
+        l0, g0, n0 = _hybrid_step_grads(False)
+        l0b, g0b, _ = _hybrid_step_grads(False)
+        l1, g1, n1 = _hybrid_step_grads(True)
+    assert n0["flash_attention_bwd_dq"] == n1["flash_attention_bwd_dq"] > 0
+    assert n1["flash_attention"] > n0["flash_attention"]   # recomputed
+    noise, rel = _rel(g0b, g0), _rel(g1, g0)
+    worst = sorted(((_rel({n: g1[n]}, {n: g0[n]}), n) for n in g0
+                    if float(g0[n].norm()) > 0), reverse=True)[:4]
+    msg = (f"loss {l0} / {l0b} / remat {l1}; rel-L2 remat {rel}, two runs "
+           f"without {noise}; worst {worst}; nondeterministic ops "
+           f"{sorted({str(w.message)[:120] for w in caught})}")
+    print(msg)
+    assert l0b == l0 and all(torch.equal(g0b[n], g0[n]) for n in g0), msg
+    assert l1 == l0 and all(torch.equal(g1[n], g0[n]) for n in g0), msg
 
 
 def test_gradients_flow_through_the_kernel_functions(gen):

@@ -155,6 +155,35 @@ def test_function_matches_autograd_of_plain(case):
         torch.testing.assert_close(g, w, **TOL)
 
 
+def test_function_reads_the_padded_table():
+    """WavLM passes `padded_bias`'s row-padded view of the table, which the
+    backward reads through its strides, uncopied: autograd through
+    `flash_attention` with that view equals autograd with the contiguous
+    table, and jax.vjp of the interpreted Pallas flash; the table's
+    gradient reaches the leaf through the view."""
+    B, T, S, Hq, Hkv, D, bias, kv_lens, blk = CASES["one_block_bias_len0"]
+    x = _inputs(B, T, S, Hq, Hkv, D, bias, kv_lens, seed=4)
+    names = ["q", "k", "v", "pos_bias", "gate"]
+
+    def f(*a):
+        return jax_flash(*a[:3], kv_lens=_j(x["kv_lens"]), pos_bias=a[3],
+                         gate=a[4], block_q=blk, block_k=blk, interpret=True)
+    _, vjp = jax.vjp(f, *[_j(x[n]) for n in names])
+    want = vjp(_j(x["dout"]))
+    out_c, got_c = _port_grads(x, fa.flash_attention)
+    ts = {n: _t(x[n]).requires_grad_(True) for n in names}
+    table = fa.padded_bias(ts["pos_bias"])
+    assert table.stride(1) == 40 and not table.is_contiguous()
+    out = fa.flash_attention(ts["q"], ts["k"], ts["v"],
+                             kv_lens=_t(x["kv_lens"]), pos_bias=table,
+                             gate=ts["gate"])
+    out.backward(_t(x["dout"]))
+    assert torch.equal(out, out_c)
+    for name, c, w in zip(names, got_c, want):
+        assert torch.equal(ts[name].grad, c), name
+        _close(name, ts[name].grad, w)
+
+
 def test_no_grad_takes_the_forward_alone():
     x = _inputs(1, 8, 8, 2, 2, 16, True, None)
     q = _t(x["q"]).requires_grad_(True)
