@@ -12,7 +12,8 @@ Phases, one line each, any failure exits non-zero:
 3. kernels: each kernel against its plain PyTorch version at the served
    paths' shapes (B = 8, 10 s audio, WavLM-Large + LLaMA-3.2-1B; the chunk
    kernels at L = 8 and 16 over a full cache), with the error against a
-   stated tolerance and both times;
+   stated tolerance and both times; the decode kernel (#4) also at B = 64
+   beside SDPA, and the cluster size it launched at each batch;
 4. serve (bf16): three `Transcriber.transcribe` calls of 8 padded 6-10 s
    waveforms each, at full width with random bf16 weights from a seeded
    generator, up to 150 new tokens; the kernels' launch counts, set to 0
@@ -349,6 +350,13 @@ def kernel_phase(torch, card: str, records):
           library=lambda: F.scaled_dot_product_attention(
               qd[:, :, None], kch, vch, attn_mask=mask[:, None, None],
               enable_gqa=True))
+    # the cluster size the wrapper passed to the last of those launches
+    records["decode_attention"]["cluster"] = da.decode_attention.last_cluster
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say(f"kernel decode_attention: a cluster of "
+        f"{records['decode_attention']['cluster']} blocks a (b, kv head) at "
+        f"B = {BATCH} on {sms} SMs [{card}]")
+    decode_at_batch(torch, card, 64, Hq, Hkv, S_max, D, randn)
 
     # the int8 cache of the same K / V, quantized as the decoder writes it
     # (k / v scale rows interleaved per kv head)
@@ -383,6 +391,35 @@ def kernel_phase(torch, card: str, records):
               lambda: dc.decode_attention_int8_chunk_plain(qc, k8, v8, kvs,
                                                            mc),
               1, p_step(di, qc, k8, v8, kvs, mc), INT8_WHY, keep=False)
+
+
+def decode_at_batch(torch, card: str, B, Hq, Hkv, S, D, randn):
+    """#4 at a headline batch (a cluster of fewer blocks a (b, kv head)):
+    its error against the plain version, its device time in a CUDA graph
+    beside SDPA's on the same inputs, and its bound; printed, not kept."""
+    import torch.nn.functional as F
+    from mtasr_tpu_torch.ops.kernels import decode_attention as da
+    from mtasr_tpu_torch.tools.timing import graph_ms
+    q = randn(B, Hq, D)
+    kc, vc = randn(B, S, Hkv * D), randn(B, S, Hkv * D)
+    mask = torch.ones((B, S), dtype=torch.bool, device=q.device)
+    mask[-1, 150:] = False
+    kh, vh = (t.view(B, S, Hkv, D).transpose(1, 2) for t in (kc, vc))
+    out = da.decode_attention(q, kc, vc, mask)
+    C = da.decode_attention.last_cluster
+    err, tol = check_err(torch, "decode_attention", out,
+                         da.decode_attention_plain(q, kc, vc, mask), 4)
+    g_k = graph_ms(lambda: da.decode_attention(q, kc, vc, mask))
+    g_l = graph_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kh, vh, attn_mask=mask[:, None, None],
+        enable_gqa=True))
+    b_ms, b_by = bound(nbytes(q, kc, vc, mask, q),
+                       attention_ops(D, Hq * int(mask.sum())), "bf16")
+    say(f"kernel decode_attention at B = {B}: cluster "
+        f"{C} max_abs_err {err:.6g} (tol "
+        f"{tol:.6g}) in a CUDA graph kernel {fmt_ms(g_k)} library (SDPA) "
+        f"{fmt_ms(g_l)} bound {b_ms:.4f} ms ({b_by}; {b_ms / g_k:.3f} of "
+        f"it) shape {(B, Hq, S, D)} [{card}]")
 
 
 def captured_phase(torch, card: str, records, calls) -> None:

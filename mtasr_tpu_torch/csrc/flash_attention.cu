@@ -62,10 +62,12 @@
 // tile's P V with the next tile's softmax inside a warpgroup (ptxas
 // serialises the `wgmma`s or the extra registers cost occupancy).
 #include "common.cuh"
-#include "flash_tile.cuh"
 #include "hopper.cuh"
 
 namespace {
+
+// The logsumexp of a row with no valid key (the JAX kernels' NEG_INF).
+constexpr float kNegInf = -1e30f;
 
 constexpr int kWG = 2;        // consumer warpgroups of a block
 constexpr int kBM = 64 * kWG; // query rows of a block: 64 a warpgroup

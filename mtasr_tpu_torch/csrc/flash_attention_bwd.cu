@@ -75,34 +75,44 @@
 //   are its own output rows. Query rows past T are TMA's zeros with lse
 //   +inf, so p = ds = 0 there (:477-486).
 //
-// #10 keeps PR 3's algorithm: 4 warps a block own one (h, query tile, key
-// tile) and loop over the batch, so the sum is deterministic, in batch
-// order as on the TPU, where the batch is the innermost grid axis; Q, dO,
-// K, V tiles staged in shared memory, both products through WMMA (bf16 in,
-// f32 accumulate), the scores and dO V^T of a tile in shared memory (71 KB
-// a block: 3 blocks an SM). The gated [B, H, T, S] bias is never built:
-// gate * pos_bias is composed in the kernels.
-#include <climits>
-#include <mma.h>
+// - #10: a block owns (h, 64 queries a warpgroup, 64 keys) and walks the
+//   batch in order, so the f32 sum is deterministic, in batch order as on
+//   the TPU, where the batch is the innermost grid axis (no atomics). A
+//   ring of 2 stages on `mbarrier`s carries batch row b + 1's Q, dO, K and
+//   V tiles, filled by TMA with the batch as a coordinate, while row b is
+//   computed; rows whose kv_len ends before the key tile
+//   are skipped, never loaded. S = Q K^T and dP = dO V^T are `wgmma`s with
+//   their accumulators in registers, ds and gate * ds are formed there as
+//   #8 forms ds (log2 units, one `ex2` each), the next row's lse, delta and
+//   gate are fetched during this row's products, and the bias tile comes
+//   by TMA once and stays in registers. The dpb tile lives in registers
+//   across the batch loop and is written once. What bounded the old
+//   kernel (the batch loop in series: synchronous loads, WMMA products
+//   staged through shared memory, two barriers a row) is gone; what is
+//   left is the traffic of Q, dO, K and V through L2, B times a tile
+//   (about 537 MB a call at the training shape). Measured against this
+//   tile (64 queries x 64 keys, one warpgroup, 3 blocks an SM): 128
+//   queries on two warpgroups sharing K / V (one block an SM), a third
+//   ring stage (2 blocks an SM) and a cluster of two key tiles sharing Q /
+//   dO by TMA multicast were all slower on the H100 (PERF.md, section 6).
+// The gated [B, H, T, S] bias is never built: gate * pos_bias is composed
+// in the kernels.
 
 #include "common.cuh"
-#include "flash_tile.cuh"
 #include "hopper.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr int kBN = 64;      // keys (#8) or queries (#9) of a ring tile
 constexpr int kStages = 2;   // ring tiles in flight
 
-// What #8 and #9 read besides the tiles that come through tensor maps.
+// What #8-#10 read besides the tiles that come through tensor maps.
 struct Rows {
   const bf16* gate;
   const int* kv_lens;
   const float *lse, *delta;
   void *out_a, *out_b;
-  int T, S, Hq, Hkv, D;
+  int B, T, S, Hq, Hkv, D;
   float scale;
   int has_bias;
 };
@@ -557,204 +567,236 @@ bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---- #10: dpb, summed over the batch ---------------------------------------
-constexpr int kBM = 64;  // queries of a tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kDpbThreads = 128;  // one warpgroup: 64 queries a block
+constexpr int kDpbStages = 2;     // batch rows in flight
 
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
+// Each stage: Q, dO, K and V [64 rows][DP] of one batch row; the bias tile
+// [64 queries][64 keys], loaded once; the stages' barriers and the bias's.
 template <int DP>
-struct DpbSmem {  // leading dims padded against bank conflicts
-  static constexpr int LDQ = DP + 8;   // bf16 rows: q, dO, k, v
-  static constexpr int LDS = kBN + 4;  // f32 scores and dO V^T
-  static constexpr size_t q = 0;
-  static constexpr size_t dout = q + sizeof(bf16) * kBM * LDQ;
-  static constexpr size_t k = dout + sizeof(bf16) * kBM * LDQ;
-  static constexpr size_t v = k + sizeof(bf16) * kBN * LDQ;
-  static constexpr size_t s = v + sizeof(bf16) * kBN * LDQ;
-  static constexpr size_t dp = s + sizeof(float) * kBM * LDS;
-  static constexpr size_t rows = dp + sizeof(float) * kBM * LDS;
-  static constexpr size_t bytes = rows + sizeof(float) * 3 * kBM;
+struct DpbSmem {
+  static constexpr uint32_t tile = DP / 64 * kAtom;
+  static constexpr uint32_t q = 0;              // within a stage
+  static constexpr uint32_t dout = q + tile;
+  static constexpr uint32_t k = dout + tile;
+  static constexpr uint32_t v = k + tile;
+  static constexpr uint32_t stage = v + tile;   // also its loads' bytes
+  static constexpr uint32_t bias = kDpbStages * stage;
+  static constexpr uint32_t bar = bias + kAtom;
+  static constexpr uint32_t bytes = bar + 8 * (kDpbStages + 1) + 1024;
 };
 
-struct Args {
-  const bf16 *q, *k, *v, *pos_bias, *gate;
-  const int* kv_lens;
-  const float *lse, *delta;
-  const bf16* dout;
-  void* out;
-  int B, T, S, Hq, Hkv, D;
-  float scale;
-  long long bias_row, bias_head;
-};
-
-// c[64 x 64] (f32, ld LDS) = a[64 x DP] . b[64 x DP]^T for this warp's 16
-// rows of a.
 template <int DP>
-__device__ __forceinline__ void warp_abt(const bf16* a, const bf16* b,
-                                         float* c) {
+__global__ void __launch_bounds__(kDpbThreads, DP == 64 ? 3 : 1)
+bwd_dpb_kernel(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap do_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap b_map, const Rows args) {
   using L = DpbSmem<DP>;
-  const int warp = threadIdx.x >> 5;
+  constexpr int kAtoms = DP / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const unsigned char* b_s = smem_raw + (base - raw) + L::bias;
+  const uint32_t bar0 = base + L::bar;          // stage s: bar0 + 8 * s
+  const uint32_t b_bar = bar0 + 8 * kDpbStages;
+
+  const int T = args.T, S = args.S, B = args.B;
+  const int k0 = blockIdx.x * kBN, q0 = blockIdx.y * kBN, h = blockIdx.z;
+  const int hk = h / (args.Hq / args.Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  auto kv_len_of = [&](int b) { return min(max(args.kv_lens[b], 0), S); };
+  // the first batch row from b on with a key in this tile (B: none left)
+  auto next_row = [&](int b) {
+    while (b < B && k0 >= kv_len_of(b)) ++b;
+    return b;
+  };
+  // Q, dO, K and V of batch row b into stage s (one thread)
+  auto load_stage = [&](int b, int s) {
+    const uint32_t bar = bar0 + 8 * s, st = base + s * L::stage;
+    mbar_expect_tx(bar, L::stage);
 #pragma unroll
-  for (int nc = 0; nc < kBN / 16; ++nc) {
-    Acc acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kc = 0; kc < DP / 16; ++kc) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, a + warp * 16 * L::LDQ + kc * 16, L::LDQ);
-      wmma::load_matrix_sync(fb, b + nc * 16 * L::LDQ + kc * 16, L::LDQ);
-      wmma::mma_sync(acc, fa, fb, acc);
+    for (int c = 0; c < kAtoms; ++c) {
+      tma_load(st + L::q + c * kAtom, &q_map, bar, c * 64, h, q0, b);
+      tma_load(st + L::dout + c * kAtom, &do_map, bar, c * 64, h, q0, b);
+      tma_load(st + L::k + c * kAtom, &k_map, bar, c * 64, hk, k0, b);
+      tma_load(st + L::v + c * kAtom, &v_map, bar, c * 64, hk, k0, b);
     }
-    wmma::store_matrix_sync(c + warp * 16 * L::LDS + nc * 16, acc, L::LDS,
-                            wmma::mem_row_major);
-  }
-}
+  };
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads) bwd_dpb_kernel(Args a) {
-  using L = DpbSmem<DP>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sdo = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* sk = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sv = reinterpret_cast<bf16*>(smem + L::v);
-  float* ss = reinterpret_cast<float*>(smem + L::s);
-  float* sdp = reinterpret_cast<float*>(smem + L::dp);
-  float* s_lse = reinterpret_cast<float*>(smem + L::rows);
-  float* s_delta = s_lse + kBM;
-  float* s_gate = s_delta + kBM;
-  const int k0 = blockIdx.x * kBN, q0 = blockIdx.y * kBM, h = blockIdx.z;
-  const int T = a.T, S = a.S, D = a.D;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long q_stride = static_cast<long long>(a.Hq) * D;
-  const long long kv_stride = static_cast<long long>(a.Hkv) * D;
-  const bf16* pb_h = a.pos_bias + h * a.bias_head;
-  // a head's table fits an int index (the C entry refuses one that does
-  // not): the compiler reloads pbv in the batch loop, where a 64-bit row
-  // multiply cost a third of the kernel's time
-  const int pb_row = static_cast<int>(a.bias_row);
-
-  float pbv[16][kBN / 32], acc[16][kBN / 32];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int qi = q0 + warp * 16 + r;
-#pragma unroll
-    for (int c = 0; c < kBN / 32; ++c) {
-      const int kj = k0 + lane + 32 * c;
-      pbv[r][c] = qi < T && kj < S
-                      ? __bfloat162float(pb_h[qi * pb_row + kj])
-                      : 0.f;
-      acc[r][c] = 0.f;
+  int b_load = 0;                    // thread 0: the next row to load
+  if (tid == 0) {
+    for (int s = 0; s < kDpbStages; ++s) mbar_init(bar0 + 8 * s, 1);
+    mbar_init(b_bar, 1);
+    mbar_fence_init();
+    mbar_expect_tx(b_bar, kAtom);
+    tma_load_3d(base + L::bias, &b_map, b_bar, k0, q0, h);
+    b_load = next_row(0);
+    for (int s = 0; s < kDpbStages && b_load < B; ++s) {
+      load_stage(b_load, s);
+      b_load = next_row(b_load + 1);
     }
   }
+  __syncthreads();
 
-  for (int b = 0; b < a.B; ++b) {
-    const int kv_len = min(max(a.kv_lens[b], 0), S);
-    if (k0 >= kv_len) continue;  // the tile's keys are all masked
-    const long long bh = static_cast<long long>(b) * a.Hq + h;
-    const long long q_off = (static_cast<long long>(b) * T * a.Hq + h) * D;
-    const long long kv_off =
-        (static_cast<long long>(b) * S * a.Hkv + hk) * D;
-    load_rows<DP, kThreads>(sq, L::LDQ, a.q + q_off, q_stride, q0, T, D);
-    load_rows<DP, kThreads>(sdo, L::LDQ, a.dout + q_off, q_stride, q0, T, D);
-    load_rows<DP, kThreads>(sk, L::LDQ, a.k + kv_off, kv_stride, k0, kv_len,
-                            D);
-    load_rows<DP, kThreads>(sv, L::LDQ, a.v + kv_off, kv_stride, k0, kv_len,
-                            D);
-    if (threadIdx.x < kBM) {   // lse, delta and gate of the tile's queries
-      const int qi = q0 + threadIdx.x;
-      const bool ok = qi < T;
-      const long long at = bh * T + qi;
-      s_lse[threadIdx.x] = ok ? a.lse[at] : 0.f;
-      s_delta[threadIdx.x] = ok ? a.delta[at] : 0.f;
-      s_gate[threadIdx.x] = ok ? __bfloat162float(a.gate[at]) : 0.f;
+  // this thread's two rows (r0 and r0 + 8 of the block); for batch row b
+  // their lse and gate in log2 units (a row past T: lse +inf, so p = 0),
+  // delta and the gate
+  const int r0 = warp * 16 + (lane >> 2);
+  const int qi[2] = {q0 + r0, q0 + r0 + 8};
+  const float scale2 = args.scale * kLog2e;
+  auto row_stats = [&](int b, float (&st)[2][4]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bool ok = qi[j] < T;
+      const long long at = (static_cast<long long>(b) * args.Hq + h) * T +
+                           (ok ? qi[j] : 0);
+      const float g = ok ? __bfloat162float(args.gate[at]) : 0.f;
+      st[j][0] = ok ? args.lse[at] * kLog2e : INFINITY;
+      st[j][1] = ok ? args.delta[at] : 0.f;
+      st[j][2] = g;
+      st[j][3] = g * kLog2e;
     }
-    __syncthreads();
-    warp_abt<DP>(sq, sk, ss);
-    warp_abt<DP>(sdo, sv, sdp);
-    __syncwarp();
+  };
+
+  // the bias pairs of this thread's accumulator elements, kept in
+  // registers for the whole batch loop: row r0 (+ 8), 16-byte chunk
+  // (i / 4) XOR (row % 8) of the swizzled tile, word lane % 4
+  mbar_wait(b_bar, 0);
+  uint32_t pbr[kBN / 4];
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r, qi = q0 + row;
-      const float g = s_gate[row], m = s_lse[row], dl = s_delta[row];
+  for (int i = 0; i < kBN / 2; i += 2)
+    pbr[i / 2] = *reinterpret_cast<const uint32_t*>(
+        b_s + (r0 + 8 * ((i >> 1) & 1)) * 128 +
+        (((i >> 2) ^ (lane >> 2)) << 4) + (lane & 3) * 4);
+
+  float acc[kBN / 2], sc[kBN / 2], dp[kBN / 2];
 #pragma unroll
-      for (int c = 0; c < kBN / 32; ++c) {
-        const int col = lane + 32 * c, kj = k0 + col;
-        if (qi < T && kj < kv_len) {
-          const float s = ss[row * L::LDS + col] * a.scale + g * pbv[r][c];
-          acc[r][c] += g * (expf(s - m) * (sdp[row * L::LDS + col] - dl));
-        }
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = sc[i] = dp[i] = 0.f;
+
+  float cur[2][4], nxt[2][4];
+  int b = next_row(0);
+  if (b < B) row_stats(b, cur);
+  for (int n = 0; b < B; ++n) {
+    const int s = n % kDpbStages;
+    const int b_next = next_row(b + 1);
+    if (b_next < B) row_stats(b_next, nxt);  // in flight during the products
+    const int kv_len = kv_len_of(b);
+    const uint32_t st = base + s * L::stage;
+    mbar_wait(bar0 + 8 * s, (n / kDpbStages) & 1);
+
+    // S = Q K^T and dP = dO V^T, 4 k-steps of 16 a 64-column atom
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * kAtom + (kk & 3) * 32;
+      wgmma_ss_m64n64(sc, desc_sw128(st + L::q + off, 16, 1024),
+                      desc_sw128(st + L::k + off, 16, 1024), kk > 0);
+      wgmma_ss_m64n64(dp, desc_sw128(st + L::dout + off, 16, 1024),
+                      desc_sw128(st + L::v + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(sc);
+    reg_fence(dp);
+
+    // dpb += gate * p (dp - delta), 0 at keys at or past kv_len (a select:
+    // K and V rows there may hold anything)
+    const bool partial = k0 + kBN > kv_len;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float2 pb = bf16x2_float2(pbr[i / 2]);
+      const float p0 =
+          ex2(fmaf(sc[i], scale2, fmaf(cur[r][3], pb.x, -cur[r][0])));
+      const float p1 =
+          ex2(fmaf(sc[i + 1], scale2, fmaf(cur[r][3], pb.y, -cur[r][0])));
+      float d0 = p0 * (dp[i] - cur[r][1]), d1 = p1 * (dp[i + 1] - cur[r][1]);
+      if (partial) {
+        const int j = k0 + frag_col(i, lane);
+        d0 = j < kv_len ? d0 : 0.f;
+        d1 = j + 1 < kv_len ? d1 : 0.f;
+      }
+      acc[i] = fmaf(cur[r][2], d0, acc[i]);
+      acc[i + 1] = fmaf(cur[r][2], d1, acc[i + 1]);
+    }
+
+    __syncthreads();                 // every warp is done with stage s
+    if (tid == 0 && b_load < B) {
+      load_stage(b_load, s);
+      b_load = next_row(b_load + 1);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cur[j][e] = nxt[j][e];
+    b = b_next;
+  }
+
+  bf16* dpb = static_cast<bf16*>(args.out_a);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qi[r] >= T) continue;
+    bf16* row = dpb + (static_cast<long long>(h) * T + qi[r]) * S;
+#pragma unroll
+    for (int i = 2 * r; i < kBN / 2; i += 4) {
+      const int j = k0 + frag_col(i, lane);
+      if ((S & 1) == 0 && j < S) {     // j even: a 4-byte aligned pair
+        *reinterpret_cast<__nv_bfloat162*>(row + j) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      } else {
+        if (j < S) row[j] = __float2bfloat16(acc[i]);
+        if (j + 1 < S) row[j + 1] = __float2bfloat16(acc[i + 1]);
       }
     }
-    __syncthreads();  // the tiles are refilled for the next row
-  }
-
-  bf16* dpb = static_cast<bf16*>(a.out);
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int qi = q0 + warp * 16 + r;
-#pragma unroll
-    for (int c = 0; c < kBN / 32; ++c) {
-      const int kj = k0 + lane + 32 * c;
-      if (qi < T && kj < S)
-        dpb[(static_cast<long long>(h) * T + qi) * S + kj] =
-            __float2bfloat16(acc[r][c]);
-    }
   }
 }
 
-struct Inputs {  // the tensors #8 and #9 read through tensor maps
+struct Inputs {  // the tensors #8-#10 read through tensor maps
   const void *q, *k, *v, *dout, *pos_bias;
-  int B;
   long long bias_row, bias_head;
 };
 
 template <int DP>
 cudaError_t launch_wgmma(int which, const Inputs& x, const Rows& args,
                          cudaStream_t stream) {
-  const bool dq = which == 0;
-  static bool attr_set[2] = {false, false};  // once per instantiation
+  using Dpb = DpbSmem<DP>;
+  static bool attr_set[3] = {false, false, false};  // once per instantiation
   const cudaError_t e =
-      dq ? allow_smem(bwd_dq_kernel<DP>, attr_set[0], DqSmem<DP>::bytes)
-         : allow_smem(bwd_dkv_kernel<DP>, attr_set[1], DkvSmem<DP>::bytes);
+      which == 0
+          ? allow_smem(bwd_dq_kernel<DP>, attr_set[0], DqSmem<DP>::bytes)
+      : which == 1
+          ? allow_smem(bwd_dkv_kernel<DP>, attr_set[1], DkvSmem<DP>::bytes)
+          : allow_smem(bwd_dpb_kernel<DP>, attr_set[2], Dpb::bytes);
   if (e != cudaSuccess) return e;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const int q_rows = dq ? kDqRows : kBN;
+  const int q_rows = which == 0 ? kDqRows : kBN;
   CUtensorMap q_map, do_map, k_map, v_map, b_map = {};
-  if (!make_map(encode, &q_map, x.q, x.B, args.T, args.Hq, args.D, q_rows) ||
-      !make_map(encode, &do_map, x.dout, x.B, args.T, args.Hq, args.D,
+  if (!make_map(encode, &q_map, x.q, args.B, args.T, args.Hq, args.D,
                 q_rows) ||
-      !make_map(encode, &k_map, x.k, x.B, args.S, args.Hkv, args.D, kBN) ||
-      !make_map(encode, &v_map, x.v, x.B, args.S, args.Hkv, args.D, kBN) ||
+      !make_map(encode, &do_map, x.dout, args.B, args.T, args.Hq, args.D,
+                q_rows) ||
+      !make_map(encode, &k_map, x.k, args.B, args.S, args.Hkv, args.D, kBN) ||
+      !make_map(encode, &v_map, x.v, args.B, args.S, args.Hkv, args.D, kBN) ||
       (args.has_bias &&
        !make_bias_map(encode, &b_map, x.pos_bias, args.Hq, args.T, args.S,
                       x.bias_row, x.bias_head, q_rows)))
     return cudaErrorInvalidValue;
-  if (dq) {
-    const dim3 grid((args.T + kDqRows - 1) / kDqRows, args.Hq, x.B);
+  if (which == 0) {
+    const dim3 grid((args.T + kDqRows - 1) / kDqRows, args.Hq, args.B);
     bwd_dq_kernel<DP><<<grid, kDqThreads, DqSmem<DP>::bytes, stream>>>(
         q_map, do_map, k_map, v_map, b_map, args);
-  } else {
-    const dim3 grid((args.S + kBN - 1) / kBN, args.Hq, x.B);
+  } else if (which == 1) {
+    const dim3 grid((args.S + kBN - 1) / kBN, args.Hq, args.B);
     bwd_dkv_kernel<DP><<<grid, kKvThreads, DkvSmem<DP>::bytes, stream>>>(
         q_map, do_map, k_map, v_map, b_map, args);
+  } else {
+    const dim3 grid((args.S + kBN - 1) / kBN,
+                    (args.T + q_rows - 1) / q_rows, args.Hq);
+    bwd_dpb_kernel<DP><<<grid, kDpbThreads, Dpb::bytes, stream>>>(
+        q_map, do_map, k_map, v_map, b_map, args);
   }
-  return cudaGetLastError();
-}
-
-template <int DP>
-cudaError_t launch_dpb(const Args& a, cudaStream_t stream) {
-  using L = DpbSmem<DP>;
-  static bool attr_set = false;
-  const cudaError_t e =
-      allow_smem(bwd_dpb_kernel<DP>, attr_set, static_cast<uint32_t>(L::bytes));
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + kBN - 1) / kBN, (a.T + kBM - 1) / kBM, a.Hq);
-  bwd_dpb_kernel<DP><<<grid, kThreads, L::bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -767,8 +809,7 @@ MTASR_EXPORT_ERROR_STRING
 // Hq == Hkv, else f32), 2 = #10 (out_a dpb bf16 [Hq, T, S], contiguous;
 // needs the bias). D % 8 == 0 and D <= 128; q, k, v, dout and pos_bias
 // 16-byte aligned, pos_bias rows bias_row and heads bias_head elements
-// apart (multiples of 8; #10 indexes a head's table with an int, so
-// T * bias_row <= INT_MAX); pos_bias / gate may be null when has_bias == 0.
+// apart (multiples of 8); pos_bias / gate may be null when has_bias == 0.
 extern "C" int flash_attention_bwd_launch(
     int which, const void* q, const void* k, const void* v,
     const void* pos_bias, const void* gate, const void* kv_lens,
@@ -779,31 +820,16 @@ extern "C" int flash_attention_bwd_launch(
       B < 1 || T < 1 || S < 1 || which < 0 || which > 2 ||
       (which == 2 && !has_bias) || (which == 1 && !out_b) ||
       (which == 0 && has_bias && !out_b) ||
-      (has_bias && (bias_row % 8 != 0 || bias_head % 8 != 0)) ||
-      (which == 2 && static_cast<long long>(T) * bias_row > INT_MAX))
+      (has_bias && (bias_row % 8 != 0 || bias_head % 8 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Inputs x{q, k, v, dout, pos_bias, bias_row, bias_head};
+  const Rows args{static_cast<const bf16*>(gate),
+                  static_cast<const int*>(kv_lens),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), out_a, out_b, B, T, S, Hq,
+                  Hkv, D, scale, has_bias};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (which == 2) {
-    const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                 static_cast<const bf16*>(v),
-                 static_cast<const bf16*>(pos_bias),
-                 static_cast<const bf16*>(gate),
-                 static_cast<const int*>(kv_lens),
-                 static_cast<const float*>(lse),
-                 static_cast<const float*>(delta),
-                 static_cast<const bf16*>(dout), out_a, B, T, S, Hq, Hkv, D,
-                 scale, bias_row, bias_head};
-    err = D <= 64 ? launch_dpb<64>(a, st) : launch_dpb<128>(a, st);
-  } else {
-    const Inputs x{q, k, v, dout, pos_bias, B, bias_row, bias_head};
-    const Rows args{static_cast<const bf16*>(gate),
-                    static_cast<const int*>(kv_lens),
-                    static_cast<const float*>(lse),
-                    static_cast<const float*>(delta), out_a, out_b, T, S, Hq,
-                    Hkv, D, scale, has_bias};
-    err = D <= 64 ? launch_wgmma<64>(which, x, args, st)
-                  : launch_wgmma<128>(which, x, args, st);
-  }
+  const cudaError_t err = D <= 64 ? launch_wgmma<64>(which, x, args, st)
+                                  : launch_wgmma<128>(which, x, args, st);
   return static_cast<int>(err);
 }

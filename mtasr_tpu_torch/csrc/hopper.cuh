@@ -1,5 +1,6 @@
 // Hopper building blocks of the flash attention kernels (forward in
-// flash_attention.cu, backward in flash_attention_bwd.cu): TMA tensor maps
+// flash_attention.cu, backward in flash_attention_bwd.cu; the decode kernel
+// takes `ex2` and `kLog2e`): TMA tensor maps
 // and loads, `mbarrier`s, `wgmma` with 128-byte swizzled shared-memory
 // operands, and the accumulator's fragment layout. Everything sits in an
 // unnamed namespace, so each library gets its own copy and no symbol (nor a

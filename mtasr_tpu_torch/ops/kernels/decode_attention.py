@@ -13,7 +13,34 @@ import torch
 
 from mtasr_tpu_torch.ops.kernels import _build
 
-_ARGS = [_build.P] * 5 + [_build.I] * 5 + [_build.F, _build.P]
+_ARGS = [_build.P] * 6 + [_build.I] * 6 + [_build.F, _build.P]
+# scores a block keeps in shared memory (`kScoreFloats` of the .cu file); a
+# longer slice keeps them in a global scratch the wrapper allocates
+SCORE_FLOATS = 24576
+SLOT_ELEMS = 4096         # bf16 elements of a ring slot (`kSlotElems`)
+MAX_CLUSTER = 8           # blocks of a portable thread-block cluster
+_sms = {}                 # device index -> SM count
+
+
+def cluster_size(B: int, Hkv: int, S: int, sms: int = 132,
+                 D: int = 64) -> int:
+    """The blocks one (batch row, kv head) is split over, one cluster: the
+    fewest that let B * Hkv * C blocks cover the card's `sms` SMs, then the
+    fewest from there whose slice of ceil(S / C) keys fits one ring tile,
+    if one does (each tile costs a block a wait and two barriers: on the
+    H100, C = 4 measured faster than 3 at B = 8, S = 214); at most 8 (a
+    portable cluster) and at most S (every block holds a key). 1 once
+    B * Hkv >= sms."""
+    blocks = B * Hkv
+    if blocks >= sms:
+        return 1
+    top = min(MAX_CLUSTER, S)
+    c = min(top, -(-sms // blocks))
+    tile = SLOT_ELEMS // (-(-D // 8) * 8)         # keys a ring slot holds
+    for more in range(c, top + 1):
+        if -(-S // more) <= tile:
+            return more
+    return c
 
 
 def build():
@@ -74,15 +101,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise TypeError("decode_attention: q and caches must be bf16 (got "
                         f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype})")
     out = torch.empty_like(q)
+    dev = q.device.index
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    C = cluster_size(B, Hkv, S, _sms[dev], D)
+    G = Hq // Hkv
+    scratch = (torch.empty((B, Hkv, G, S), dtype=torch.float32,
+                           device=q.device)
+               if G * -(-S // C) > SCORE_FLOATS else None)
     lib = build()
     with torch.cuda.device(q.device):
         code = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D,
-            float(D ** -0.5), _build.stream_of(q))
+            mask.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, S, Hq, Hkv,
+            D, C, float(D ** -0.5), _build.stream_of(q))
     _build.check(lib, code, "decode_attention")
     decode_attention.launches += 1
+    decode_attention.last_cluster = C
     return out
 
 
 decode_attention.launches = 0
+decode_attention.last_cluster = None   # the C of the last launch

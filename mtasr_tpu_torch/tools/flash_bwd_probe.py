@@ -5,8 +5,8 @@ captured 20 times in one CUDA graph (`timing.graph_ms`); the bias row's
 difference is what the bias costs each kernel (for #9, whose thread reads
 the swizzled bias tile transposed, and for #8, which reads it as the
 forward does). With `--ptxas`, first the registers, shared memory and
-spills of every kernel of `csrc/flash_attention_bwd.cu` as `nvcc -Xptxas
--v` reports them.
+spills of every kernel of `csrc/flash_attention_bwd.cu` and
+`csrc/decode_attention.cu` as `nvcc -Xptxas -v` reports them.
 
     python -m mtasr_tpu_torch.tools.flash_bwd_probe [--ptxas]
 
@@ -25,9 +25,9 @@ from mtasr_tpu_torch.ops.kernels import flash_attention as fa
 from mtasr_tpu_torch.tools.timing import graph_ms
 
 
-def ptxas_report() -> str:
-    """`nvcc -Xptxas -v`'s lines on the backward library's kernels."""
-    src = _build.CSRC / "flash_attention_bwd.cu"
+def ptxas_report(name: str = "flash_attention_bwd") -> str:
+    """`nvcc -Xptxas -v`'s lines on the kernels of `csrc/<name>.cu`."""
+    src = _build.CSRC / f"{name}.cu"
     with tempfile.TemporaryDirectory() as tmp:
         res = subprocess.run(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
@@ -46,7 +46,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     if args.ptxas:
-        print(ptxas_report(), flush=True)
+        for name in ("flash_attention_bwd", "decode_attention"):
+            print(ptxas_report(name), flush=True)
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     B, T, H, D = 16, 499, 16, 64

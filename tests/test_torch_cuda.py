@@ -151,18 +151,75 @@ def test_flash_kernel_ignores_what_lies_past_kv_len(gen):
     _check(out, fa.flash_attention_plain(q, k, v, **kw), 4)
 
 
-@pytest.mark.parametrize("S,hq,hkv,D", [(1000, 32, 8, 64), (214, 24, 8, 128),
-                                        (77, 8, 8, 64)])
-def test_decode_kernel(gen, S, hq, hkv, D):
+def _decode_inputs(g, B, S, hq, hkv, D):
+    q = _randn(g, B, hq, D)
+    kc = _randn(g, B, S, hkv * D)
+    vc = _randn(g, B, S, hkv * D)
+    mask = torch.rand((B, S), generator=g, device="cuda") > 0.2
+    mask[:, 0] = True
+    mask[-1, S // 3 + 1:] = False
+    return q, kc, vc, mask
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("S", [1, 7, 214, 1000, 20000])
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_decode_kernel(gen, B, S, G, D):
+    """#4 against its plain version at 8 kv heads: batches on either side
+    of the card's 132 SMs (clusters of up to 8 blocks a (b, kv head), 1 at
+    B = 64), caches from one slot to 20000 (scores past the shared memory
+    of a block go to the global scratch), GQA groups 1-8."""
     from mtasr_tpu_torch.ops.kernels import decode_attention as da
-    B = 3
-    q = _randn(gen, B, hq, D)
-    kc = _randn(gen, B, S, hkv * D)
-    vc = _randn(gen, B, S, hkv * D)
-    mask = torch.rand((B, S), generator=gen, device="cuda") > 0.2
-    mask[-1, S // 3:] = False
+    q, kc, vc, mask = _decode_inputs(gen, B, S, 8 * G, 8, D)
+    n = da.decode_attention.launches
+    out = da.decode_attention(q, kc, vc, mask)
+    assert da.decode_attention.launches == n + 1
+    _check(out, da.decode_attention_plain(q, kc, vc, mask), 4)
+
+
+@pytest.mark.parametrize("B,S,hq,hkv,D", [
+    (64, 214, 32, 8, 64), (11, 120, 12, 6, 64), (8, 150, 32, 8, 64),
+    (5, 214, 32, 8, 64), (4, 300, 32, 8, 128), (3, 214, 24, 8, 64),
+    (1, 7, 32, 8, 64), (1, 1000, 8, 8, 64),
+    (2, 9, 6, 2, 40), (3, 50, 4, 4, 256), (2, 33, 2, 1, 2),
+    (3, 1000, 32, 8, 64), (3, 214, 24, 8, 128), (3, 77, 8, 8, 64),
+])
+def test_decode_kernel_covers_every_cluster_size(gen, B, S, hq, hkv, D):
+    """Shapes for which the chooser returns each cluster size 1..8 on the
+    132-SM card (in this order; `test_torch_decode_cluster.py` pins them),
+    then head dims off the 16-byte copies (40, 2) and the widest (256),
+    then the earlier shapes at B = 3, among them the compile-time D = 128
+    path at an odd group (G = 3)."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention as da
+    q, kc, vc, mask = _decode_inputs(gen, B, S, hq, hkv, D)
     _check(da.decode_attention(q, kc, vc, mask),
            da.decode_attention_plain(q, kc, vc, mask), 4)
+
+
+def test_decode_kernel_with_every_slot_masked_and_the_same_bits(gen):
+    """A row whose every slot is masked gives what the plain version gives
+    (a softmax over -1e9 + s); two launches give the same bits (no atomics,
+    a fixed order of the cluster's sums)."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention as da
+    for B, S in ((8, 214), (64, 214), (2, 5000)):
+        q, kc, vc, mask = _decode_inputs(gen, B, S, 32, 8, 64)
+        mask[1] = False
+        out = da.decode_attention(q, kc, vc, mask)
+        _check(out, da.decode_attention_plain(q, kc, vc, mask), 4)
+        assert bool(torch.isfinite(out).all())
+        assert torch.equal(out, da.decode_attention(q, kc, vc, mask))
+
+
+def test_decode_kernel_refused_cluster_raises(gen, monkeypatch):
+    """A cluster size the C entry refuses raises; nothing falls back."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention as da
+    q, kc, vc, mask = _decode_inputs(gen, 1, 214, 32, 8, 64)
+    n = da.decode_attention.launches
+    monkeypatch.setattr(da, "cluster_size", lambda *a, **k: 9)
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        da.decode_attention(q, kc, vc, mask)
+    assert da.decode_attention.launches == n
 
 
 def _int8_cache(g, B, S, hkv, D):
@@ -374,6 +431,11 @@ def _flash_bwd_inputs(g, B, T, S, hq, hkv, D, bias, lens, padded=False):
     (2, 65, 130, 4, 4, 128, True, (130, 0), True),       # D 128, bias
     (2, 90, 80, 8, 2, 64, True, (80, 17), False),        # GQA 4
     (3, 64, 64, 2, 2, 64, True, (64, 63, 1), False),     # whole tiles
+    (1, 100, 77, 4, 2, 64, True, (77,), True),           # B 1, GQA 2
+    (16, 130, 190, 4, 2, 64, True,                       # B 16, GQA, a 0
+     (190, 0, 1, 64, 65, 128, 129, 190, 37, 190, 150, 2, 190, 100, 63, 190),
+     True),
+    (16, 499, 499, 16, 16, 64, True, (499,) * 14 + (300, 0), True),
 ])
 def test_flash_bwd_kernels(gen, B, T, S, hq, hkv, D, bias, lens, padded):
     """#8, #9, #10 against `flash_attention_bwd_plain`; the forward's lse
@@ -456,6 +518,9 @@ def test_flash_bwd_kernels_ignore_what_lies_past_kv_len_and_t(gen):
 @pytest.mark.parametrize("B,T,S,hq,hkv,lens", [
     (4, 499, 499, 16, 16, (499, 300, 499, 1)),   # the training shape
     (2, 200, 300, 8, 2, (300, 111)),             # GQA: f32 per head
+    (1, 100, 77, 4, 2, (77,)),
+    (16, 130, 190, 4, 2, (190, 0, 1, 64, 65, 128, 129, 190, 37, 190, 150, 2,
+                          190, 100, 63, 190)),
 ])
 def test_flash_bwd_kernels_give_the_same_bits_every_run(gen, B, T, S, hq,
                                                         hkv, lens):
@@ -496,12 +561,14 @@ def _deterministic():
         torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
 
 
-def _hybrid_step_grads(remat: bool):
+def _hybrid_step_grads(remat: bool, pit: bool = False, plain: bool = False):
     """(loss, {name: f32 gradient}, launch counts) of one hybrid PCGrad
     step at full width cut to 2 encoder and 2 decoder layers, batch 2 x
     2 s, dropout and SpecAugment on, weights and dropout from fixed seeds:
     the projected head gradients on the shared parameters, the total
-    loss's on the rest."""
+    loss's on the rest. `pit`: the PIT branch (one graph) instead of the
+    three-stage split; `plain`: the kernels' plain versions."""
+    from chip_smoke import plain_versions
     from mtasr_tpu_torch.ops import kernels
     from mtasr_tpu_torch.tools import full_width
     from mtasr_tpu_torch.train import train_step as ts
@@ -526,8 +593,9 @@ def _hybrid_step_grads(remat: bool):
     names = {id(p): n for n, p in model.named_parameters()}
     g.manual_seed(1)                           # the dropout stream
     kernels.reset_launch_counts()
-    out, head_grads, g_rest = ts._three_stage(model, cfg, t, 1, g, shared,
-                                              rest)
+    branch = ts._joint_pit if pit else ts._three_stage
+    with plain_versions(plain):
+        out, head_grads, g_rest = branch(model, cfg, t, 1, g, shared, rest)
     grads = {names[id(p)]: x.float() for p, x in
              zip(shared + rest, ts.pcgrad_project(head_grads) + g_rest)}
     torch.cuda.synchronize()
@@ -560,6 +628,26 @@ def test_hybrid_step_with_remat_equals_the_step_without(gen, monkeypatch):
     print(msg)
     assert l0b == l0 and all(torch.equal(g0b[n], g0[n]) for n in g0), msg
     assert l1 == l0 and all(torch.equal(g1[n], g0[n]) for n in g0), msg
+
+
+def test_hybrid_pit_step_with_kernels_equals_the_plain_step(gen):
+    """The PIT branch (`train_step.py::_joint_pit`) of one hybrid step with
+    the kernels against the same step on their plain versions: the loss
+    and the projected gradients within the hybrid gate (rel-L2 0.03), and
+    the launches of the flash forward, #8-#10 (one backward a head: 2
+    heads x 2 layers) and #11 / #12 (every head against every stream: 4
+    CTC losses, their backward for the rest and for each head)."""
+    loss_k, gk, nk = _hybrid_step_grads(False, pit=True)
+    loss_p, gp, np_ = _hybrid_step_grads(False, pit=True, plain=True)
+    print(f"PIT: loss {loss_k} vs {loss_p}, rel-L2 {_rel(gk, gp)}, "
+          f"launches {nk} / {np_}")
+    assert math.isfinite(loss_k) and abs(loss_k - loss_p) <= 0.03 * abs(loss_p)
+    assert _rel(gk, gp) <= 0.03
+    want = {"conv0_fused": 1, "flash_attention": 2,
+            "flash_attention_bwd_dq": 4, "flash_attention_bwd_dkv": 4,
+            "flash_attention_bwd_dpb": 4, "ctc_alpha": 4, "ctc_beta_post": 12}
+    assert {n: nk[n] for n in want} == want
+    assert not any(np_[n] for n in want)
 
 
 def test_gradients_flow_through_the_kernel_functions(gen):
