@@ -7,13 +7,14 @@ Phases, one line each, any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA device
    is a failure, nothing falls back to the CPU;
-2. build: compile the six kernel libraries of `mtasr_tpu_torch/csrc/`,
+2. build: compile the seven kernel libraries of `mtasr_tpu_torch/csrc/`,
    one `nvcc` each, all started together;
 3. kernels: each kernel against its plain PyTorch version at the served
    paths' shapes (B = 8, 10 s audio, WavLM-Large + LLaMA-3.2-1B; the chunk
    kernels at L = 8 and 16 over a full cache), with the error against a
-   stated tolerance and both times; the decode kernel (#4) also at B = 64
-   beside SDPA, and the cluster size it launched at each batch;
+   stated tolerance and both times; the decode kernels (#4, #6) also at
+   B = 64 (#4 beside SDPA), and the cluster size each launched at each
+   batch;
 4. serve (bf16): three `Transcriber.transcribe` calls of 8 padded 6-10 s
    waveforms each, at full width with random bf16 weights from a seeded
    generator, up to 150 new tokens; the kernels' launch counts, set to 0
@@ -272,6 +273,7 @@ def p_step(di, q, k8, v8, kvs, mask) -> float:
 
 
 CHUNK_SOURCE = "mtasr_tpu_torch/csrc/decode_attention_chunk.cu"
+INT8_SOURCE = "mtasr_tpu_torch/csrc/decode_attention_int8.cu"
 
 
 def kernel_phase(torch, card: str, records):
@@ -279,7 +281,6 @@ def kernel_phase(torch, card: str, records):
     the chunk kernels also at L = 8 and 16 over a full cache (the short
     prefill's own inputs are held in `captured_phase`)."""
     import torch.nn.functional as F
-    from mtasr_tpu_torch.models.llama import _quantize_kv
     from mtasr_tpu_torch.ops.kernels import conv_frontend as cf
     from mtasr_tpu_torch.ops.kernels import decode_attention as da
     from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
@@ -359,20 +360,19 @@ def kernel_phase(torch, card: str, records):
     decode_at_batch(torch, card, 64, Hq, Hkv, S_max, D, randn)
 
     # the int8 cache of the same K / V, quantized as the decoder writes it
-    # (k / v scale rows interleaved per kv head)
-    k8, ks = _quantize_kv(kc.reshape(BATCH, S_max, Hkv, D))
-    v8, vs = _quantize_kv(vc.reshape(BATCH, S_max, Hkv, D))
-    k8, v8 = k8.reshape(kc.shape), v8.reshape(vc.shape)
-    kvs = torch.stack([ks, vs], -1).reshape(BATCH, S_max, 2 * Hkv) \
-        .transpose(1, 2).contiguous()
-
-    check("decode_attention_int8", CHUNK_SOURCE,
+    k8, v8, kvs = int8_kv(torch, kc, vc, Hkv, D)
+    check("decode_attention_int8", INT8_SOURCE,
           "mtasr_tpu/ops/pallas/decode_attention.py:354",
           lambda: di.decode_attention_int8(qd, k8, v8, kvs, mask),
           lambda: di.decode_attention_int8_plain(qd, k8, v8, kvs, mask), 1,
           p_step(di, qd[:, None], k8, v8, kvs, mask[:, None]), INT8_WHY,
           bound_ms=bound(nbytes(qd, k8, v8, kvs, mask, qd),
                          attention_ops(D, Hq * int(mask.sum())), "int8"))
+    records["decode_attention_int8"]["cluster"] = \
+        di.decode_attention_int8.last_cluster
+    say(f"kernel decode_attention_int8: a cluster of "
+        f"{records['decode_attention_int8']['cluster']} blocks a (b, kv "
+        f"head) at B = {BATCH} on {sms} SMs [{card}]")
 
     # chunks of L positions at the end of a full cache, causal
     for L in (8, 16):
@@ -393,12 +393,27 @@ def kernel_phase(torch, card: str, records):
               1, p_step(di, qc, k8, v8, kvs, mc), INT8_WHY, keep=False)
 
 
+def int8_kv(torch, kc, vc, Hkv, D):
+    """The int8 cache of bf16 K / V [B, S, Hkv * D], quantized by the
+    decoder's own KV quantizer, with the k / v scale rows interleaved per
+    kv head as the decoder writes them."""
+    from mtasr_tpu_torch.models.llama import _quantize_kv
+    B, S = kc.shape[:2]
+    k8, ks = _quantize_kv(kc.reshape(B, S, Hkv, D))
+    v8, vs = _quantize_kv(vc.reshape(B, S, Hkv, D))
+    kvs = torch.stack([ks, vs], -1).reshape(B, S, 2 * Hkv) \
+        .transpose(1, 2).contiguous()
+    return k8.reshape(kc.shape), v8.reshape(vc.shape), kvs
+
+
 def decode_at_batch(torch, card: str, B, Hq, Hkv, S, D, randn):
-    """#4 at a headline batch (a cluster of fewer blocks a (b, kv head)):
-    its error against the plain version, its device time in a CUDA graph
-    beside SDPA's on the same inputs, and its bound; printed, not kept."""
+    """#4 and #6 at a headline batch (a cluster of fewer blocks a (b, kv
+    head)): each one's error against its plain version, its device time in
+    a CUDA graph (#4 beside SDPA's on the same inputs), its bound and the
+    cluster size it launched; printed, not kept."""
     import torch.nn.functional as F
     from mtasr_tpu_torch.ops.kernels import decode_attention as da
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
     from mtasr_tpu_torch.tools.timing import graph_ms
     q = randn(B, Hq, D)
     kc, vc = randn(B, S, Hkv * D), randn(B, S, Hkv * D)
@@ -420,6 +435,20 @@ def decode_at_batch(torch, card: str, B, Hq, Hkv, S, D, randn):
         f"{tol:.6g}) in a CUDA graph kernel {fmt_ms(g_k)} library (SDPA) "
         f"{fmt_ms(g_l)} bound {b_ms:.4f} ms ({b_by}; {b_ms / g_k:.3f} of "
         f"it) shape {(B, Hq, S, D)} [{card}]")
+    k8, v8, kvs = int8_kv(torch, kc, vc, Hkv, D)
+    out = di.decode_attention_int8(q, k8, v8, kvs, mask)
+    C = di.decode_attention_int8.last_cluster
+    err, tol = check_err(
+        torch, "decode_attention_int8", out,
+        di.decode_attention_int8_plain(q, k8, v8, kvs, mask), 1,
+        p_step(di, q[:, None], k8, v8, kvs, mask[:, None]))
+    g_k = graph_ms(lambda: di.decode_attention_int8(q, k8, v8, kvs, mask))
+    b_ms, b_by = bound(nbytes(q, k8, v8, kvs, mask, q),
+                       attention_ops(D, Hq * int(mask.sum())), "int8")
+    say(f"kernel decode_attention_int8 at B = {B}: cluster {C} "
+        f"max_abs_err {err:.6g} (tol {tol:.6g}{INT8_WHY}) in a CUDA graph "
+        f"kernel {fmt_ms(g_k)} library none bound {b_ms:.4f} ms ({b_by}; "
+        f"{b_ms / g_k:.3f} of it) shape {(B, Hq, S, D)} [{card}]")
 
 
 def captured_phase(torch, card: str, records, calls) -> None:

@@ -71,27 +71,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Until at most kSlots - 1 of this thread's copy groups are in flight.
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kSlots - 1) : "memory");
-}
-
 // Eight bf16 of shared memory (16-byte aligned) as floats.
 __device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -103,14 +82,6 @@ __device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
-}
-
-__host__ __device__ constexpr int pow2_at_least(int x) {
-  return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2);
-}
-
-__host__ __device__ constexpr int log2_of(int x) {
-  return x <= 1 ? 0 : 1 + log2_of(x / 2);
 }
 
 // The G partial dot products of a key held by its LPK lanes, summed over
@@ -307,7 +278,7 @@ decode_attn_kernel(const Params p) {
     const unsigned char* mt = msk + (whole_mask ? t * TK : 0);
     if (!whole_mask)
       for (int i = tid; i < rows; i += kThreads) msk[i] = mb[t * TK + i];
-    cp_async_wait_ring();
+    cp_async_wait<kSlots - 1>();
     __syncthreads();
     const bf16* kt = ring + (t % kSlots) * kSlotElems;
     if constexpr (NC != 0) {
@@ -383,7 +354,7 @@ decode_attn_kernel(const Params p) {
     }
   };
   for (int t = 0; t < nt; ++t) {
-    cp_async_wait_ring();
+    cp_async_wait<kSlots - 1>();
     __syncthreads();
     const bf16* vt = ring + ((nt + t) % kSlots) * kSlotElems;
     const int rows = min(TK, n - t * TK);

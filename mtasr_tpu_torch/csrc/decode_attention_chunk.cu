@@ -1,12 +1,13 @@
 // Attention of a few query tokens over the merged-lane KV cache, bf16 or
-// int8, with a per-position mask: replaces three TPU kernels of
+// int8, with a per-position mask: replaces two TPU kernels of
 // mtasr_tpu/ops/pallas/decode_attention.py, one library, two kernels:
 //
-//   L = 1, int8 cache       #6 `decode_attention_int8` / `_kernel_int8`
 //   1 < L <= 16, int8 cache #7 `decode_attention_int8_chunk` / `_kernel_int8_chunk`
 //   1 < L <= 16, bf16 cache #5 `decode_attention_chunk` / `_kernel_chunk`
 //
-// (#6 / #7: `cache_attn_kernel`; #5: `chunk_bf16_kernel`.)
+// (#7: `cache_attn_kernel`, which takes any L >= 1; #5:
+// `chunk_bf16_kernel`. The one-token int8 kernel #6 is
+// decode_attention_int8.cu, split over a thread-block cluster.)
 // q [B, L, Hq, D] bf16; k_cache / v_cache [B, S, Hkv*D] bf16 or int8;
 // kv_scale [B, 2*Hkv, S] bf16 (int8 only) with the rows of kv head h
 // INTERLEAVED: k scales in row 2h, v scales in row 2h+1 (what
@@ -672,7 +673,7 @@ int dispatch_bf16(const void* q, const void* k, const void* v,
 
 MTASR_EXPORT_ERROR_STRING
 
-// int8 != 0: the int8 cache with its scales (#6 at L = 1, #7); else bf16
+// int8 != 0: the int8 cache with its scales (#7); else bf16
 // (#5, kv_scale and scores unused). scores (int8): a [B, Hkv, L * Hq / Hkv,
 // S] f32 scratch for the scores, or null to keep them in shared memory.
 extern "C" int decode_attention_chunk_launch(int int8, const void* q,

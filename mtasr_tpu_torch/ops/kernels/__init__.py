@@ -30,12 +30,13 @@ WRAPPERS = {
     "ctc_alpha": ctc.ctc_alpha,
     "ctc_beta_post": ctc.ctc_beta_post,
 }
-# one build function per library (decode_attention_int8 shares the chunk
-# library, the three backward kernels share flash_attention_bwd's, the two
-# CTC kernels ctc's)
+# one build function per library (the two chunk kernels share one library,
+# the three backward kernels flash_attention_bwd's, the two CTC kernels
+# ctc's)
 _BUILDS = (conv_frontend.build, flash_attention.build,
            flash_attention.build_bwd, decode_attention.build,
-           decode_attention_chunk.build, ctc.build)
+           decode_attention_int8.build, decode_attention_chunk.build,
+           ctc.build)
 
 
 def build_all() -> None:

@@ -23,24 +23,35 @@ _sms = {}                 # device index -> SM count
 
 
 def cluster_size(B: int, Hkv: int, S: int, sms: int = 132,
-                 D: int = 64) -> int:
+                 D: int = 64, tile: int = None) -> int:
     """The blocks one (batch row, kv head) is split over, one cluster: the
     fewest that let B * Hkv * C blocks cover the card's `sms` SMs, then the
-    fewest from there whose slice of ceil(S / C) keys fits one ring tile,
-    if one does (each tile costs a block a wait and two barriers: on the
-    H100, C = 4 measured faster than 3 at B = 8, S = 214); at most 8 (a
-    portable cluster) and at most S (every block holds a key). 1 once
+    fewest from there whose slice of ceil(S / C) keys fits one ring tile
+    of `tile` keys (default: the bf16 kernel's at head dim D), if one does
+    (each tile costs a block a wait and two barriers: on the H100, C = 4
+    measured faster than 3 at B = 8, S = 214); at most 8 (a portable
+    cluster) and at most S (every block holds a key). 1 once
     B * Hkv >= sms."""
     blocks = B * Hkv
     if blocks >= sms:
         return 1
     top = min(MAX_CLUSTER, S)
     c = min(top, -(-sms // blocks))
-    tile = SLOT_ELEMS // (-(-D // 8) * 8)         # keys a ring slot holds
+    if tile is None:
+        tile = SLOT_ELEMS // (-(-D // 8) * 8)     # keys a ring slot holds
     for more in range(c, top + 1):
         if -(-S // more) <= tile:
             return more
     return c
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (asked once per device)."""
+    dev = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sms[dev]
 
 
 def build():
@@ -101,10 +112,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise TypeError("decode_attention: q and caches must be bf16 (got "
                         f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype})")
     out = torch.empty_like(q)
-    dev = q.device.index
-    if dev not in _sms:
-        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    C = cluster_size(B, Hkv, S, _sms[dev], D)
+    C = cluster_size(B, Hkv, S, sm_count(q.device), D)
     G = Hq // Hkv
     scratch = (torch.empty((B, Hkv, G, S), dtype=torch.float32,
                            device=q.device)

@@ -1,7 +1,8 @@
 """Attention of a few query tokens over the KV cache (counterparts of
 `mtasr_tpu/ops/pallas/decode_attention.py::decode_attention_chunk` and
-`::decode_attention_int8_chunk`), and the library that also serves the
-one-token int8 kernel of `decode_attention_int8.py`.
+`::decode_attention_int8_chunk`), and `int8_cache_attention`, the int8
+function in plain PyTorch that the one-token int8 kernel of
+`decode_attention_int8.py` is also held against.
 
 The decoder sends every cached forward of 1 < L <= 16 positions here: a
 prefill that short (short audio) or a chunk. `decode_attention_chunk`
@@ -141,22 +142,14 @@ def scores_scratch(int8: bool, B: int, L: int, S: int, Hq: int, Hkv: int,
     return B * Hq * L * S
 
 
-def launch(what: str, int8: bool, q: torch.Tensor, k_cache: torch.Tensor,
-           v_cache: torch.Tensor, kv_scale, mask: torch.Tensor, L: int,
-           dims) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors: q [B, L, Hq, D] with mask
-    [B, L, S], or, for L = 1, q [B, Hq, D] with mask [B, S] (the one-token
-    int8 kernel); or raise with the reason it does not take them:
-    contiguous tensors on one device with 16-byte aligned data, bf16 q (and
-    scales), caches int8 or bf16, Hq / Hkv in [1, 8], D a multiple of 4 up
-    to 256, 1 <= L <= 16. For the int8 cache, when the G * L rows' scores
-    over S keys do not fit the shared memory, they go to a global scratch
-    buffer (`scores_scratch`). Returns an output shaped as q."""
-    B, S, Hq, Hkv, D = dims
+def check_launch_inputs(what: str, int8: bool, q: torch.Tensor,
+                        k_cache: torch.Tensor, v_cache: torch.Tensor,
+                        kv_scale, mask: torch.Tensor, dims) -> None:
+    """Raise unless the cache kernels take these CUDA tensors: contiguous
+    on one device with 16-byte aligned data, bf16 q (and scales), caches
+    int8 or bf16, Hq / Hkv in [1, 8], D a multiple of 4 up to 256."""
+    _, _, Hq, Hkv, D = dims
     _build.require_cuda(q, what)
-    if not 1 <= L <= MAX_L:
-        raise ValueError(f"{what}: the chunk kernel takes 1..{MAX_L} "
-                         f"positions, not {L}")
     G = Hq // Hkv
     if not 1 <= G <= 8 or D % 4 or not 4 <= D <= 256:
         raise ValueError(f"{what}: Hq/Hkv = {G} (1..8), D = {D} (a multiple "
@@ -173,6 +166,23 @@ def launch(what: str, int8: bool, q: torch.Tensor, k_cache: torch.Tensor,
                 t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte "
                              f"aligned on {q.device}")
+
+
+def launch(what: str, int8: bool, q: torch.Tensor, k_cache: torch.Tensor,
+           v_cache: torch.Tensor, kv_scale, mask: torch.Tensor, L: int,
+           dims) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors q [B, L, Hq, D] with mask
+    [B, L, S], or raise with the reason it does not take them
+    (`check_launch_inputs`; 1 <= L <= 16). For the int8 cache, when the
+    G * L rows' scores over S keys do not fit the shared memory, they go to
+    a global scratch buffer (`scores_scratch`). Returns an output shaped as
+    q."""
+    B, S, Hq, Hkv, D = dims
+    if not 1 <= L <= MAX_L:
+        raise ValueError(f"{what}: the chunk kernel takes 1..{MAX_L} "
+                         f"positions, not {L}")
+    check_launch_inputs(what, int8, q, k_cache, v_cache, kv_scale, mask,
+                        dims)
     n_scratch = scores_scratch(int8, B, L, S, Hq, Hkv, D)
     scores = (torch.empty(n_scratch, dtype=torch.float32, device=q.device)
               if n_scratch else None)

@@ -5,8 +5,9 @@ captured 20 times in one CUDA graph (`timing.graph_ms`); the bias row's
 difference is what the bias costs each kernel (for #9, whose thread reads
 the swizzled bias tile transposed, and for #8, which reads it as the
 forward does). With `--ptxas`, first the registers, shared memory and
-spills of every kernel of `csrc/flash_attention_bwd.cu` and
-`csrc/decode_attention.cu` as `nvcc -Xptxas -v` reports them.
+spills of every kernel of `csrc/flash_attention_bwd.cu`,
+`csrc/decode_attention.cu`, `csrc/decode_attention_int8.cu` and
+`csrc/conv_frontend.cu` as `nvcc -Xptxas -v` reports them.
 
     python -m mtasr_tpu_torch.tools.flash_bwd_probe [--ptxas]
 
@@ -46,7 +47,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     if args.ptxas:
-        for name in ("flash_attention_bwd", "decode_attention"):
+        for name in ("flash_attention_bwd", "decode_attention",
+                     "decode_attention_int8", "conv_frontend"):
             print(ptxas_report(name), flush=True)
     g = torch.Generator(device="cuda")
     g.manual_seed(0)

@@ -46,8 +46,14 @@ def _check(out, ref, n_ulps):
 
 
 @pytest.mark.parametrize("S,O,fuse", [(1337, 512, True), (1337, 256, True),
-                                      (4001, 512, False), (10, 64, True)])
+                                      (4001, 512, False), (10, 64, True),
+                                      (1342, 1024, True), (1342, 32, True),
+                                      (1342, 128, False)])
 def test_conv0_kernel(gen, S, O, fuse):
+    """T_out = 266, 799, 1 and 267: none a multiple of the kernel's group
+    of frames a warp at that O (4 up to O = 256, 3 at 512, 2 at 1024), so
+    every group shape's ragged end is stored; O from 32 to 1024; LayerNorm
+    and gelu on and off."""
     from mtasr_tpu_torch.ops.kernels import conv_frontend as cf
     wave = _randn(gen, 3, S)
     w = _randn(gen, O, 1, 10, scale=0.3)
@@ -61,6 +67,20 @@ def test_conv0_kernel(gen, S, O, fuse):
     torch.cuda.synchronize()
     assert cf.conv0_fused.launches == before + 1
     _check(out, ref, 1)
+
+
+@pytest.mark.parametrize("K,stride", [(8, 4), (40, 20)])
+def test_conv0_kernel_other_widths(gen, K, stride):
+    """A kernel width other than WavLM's 10 (the run-time K path): a window
+    of 3 s + K = 20 samples that the shuffles hand out, and one of 100 that
+    the taps read from memory."""
+    from mtasr_tpu_torch.ops.kernels import conv_frontend as cf
+    wave = _randn(gen, 2, 1001)
+    w = _randn(gen, 512, 1, K, scale=K ** -0.5)
+    b, g, bt = (_randn(gen, 512, scale=0.05), 1 + _randn(gen, 512, scale=0.1),
+                _randn(gen, 512, scale=0.05))
+    _check(cf.conv0_fused(wave, w, b, g, bt, stride=stride),
+           cf.conv0_plain(wave, w, b, g, bt, stride=stride), 1)
 
 
 def _flash_inputs(g, B, T, S, hq, hkv, D, bias, lens):
@@ -258,8 +278,9 @@ def _check_int8(out, ref, sp, n_ulps=1):
                                           (1, 5, 4, 1, 64),
                                           (1, 20000, 32, 8, 64)])
 def test_decode_int8_kernel(gen, B, S, hq, hkv, D):
-    """S = 20000: the scores no longer fit the shared memory and go to the
-    global scratch."""
+    """S = 5: 5 blocks of one key each; S = 20000 at B = 1: 8 slices of 2500
+    keys (the scratch is reached at the longer caches of
+    `test_decode_int8_kernel_covers_every_cluster_size`)."""
     from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
     q = _randn(gen, B, hq, D)
     k8, v8, kvs = _int8_cache(gen, B, S, hkv, D)
@@ -272,6 +293,76 @@ def test_decode_int8_kernel(gen, B, S, hq, hkv, D):
     torch.cuda.synchronize()
     assert di.decode_attention_int8.launches == before + 1
     _check_int8(out, ref.to(torch.bfloat16), sp)
+
+
+def _int8_decode(gen, B, S, hq, hkv, D):
+    q = _randn(gen, B, hq, D)
+    k8, v8, kvs = _int8_cache(gen, B, S, hkv, D)
+    mask = torch.rand((B, S), generator=gen, device="cuda") > 0.2
+    mask[-1, S // 3:] = False
+    mask[:, 0] = True
+    return q, k8, v8, kvs, mask
+
+
+def _check_int8_decode(q, k8, v8, kvs, mask):
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    out = di.decode_attention_int8(q, k8, v8, kvs, mask)
+    ref, sp = di.int8_cache_attention(q[:, None], k8, v8, kvs, mask[:, None])
+    _check_int8(out, ref.to(torch.bfloat16), sp)
+    return out
+
+
+@pytest.mark.parametrize("B,S,hq,hkv,D,C", [
+    (64, 214, 32, 8, 64, 1), (11, 120, 12, 6, 64, 2), (8, 150, 32, 8, 64, 3),
+    (5, 214, 32, 8, 64, 4), (4, 300, 32, 8, 128, 5), (3, 214, 24, 8, 64, 6),
+    (1, 7, 32, 8, 64, 7), (1, 1000, 8, 8, 64, 8),
+    (1, 5, 32, 8, 64, 5), (2, 3, 16, 2, 64, 3),
+    (2, 9, 6, 2, 40, 8), (3, 50, 4, 4, 256, 8), (3, 77, 64, 8, 64, 6),
+    (1, 30000, 64, 8, 64, 8), (17, 20000, 32, 8, 64, 1),
+    (17, 700, 16, 8, 48, 1),
+])
+def test_decode_int8_kernel_covers_every_cluster_size(gen, B, S, hq, hkv, D,
+                                                      C):
+    """#6 at shapes for which the chooser returns each cluster size 1..8 on
+    the 132-SM card (`test_torch_decode_cluster.py` pins them), C = S at
+    S = 5 and 3 (a key a block), head dims off the 16-byte copies (40) and
+    the widest (256), G = 8 (two rows a lane's butterfly), D = 48 in 5
+    tiles of 168 keys (the general path's ring); then the long
+    caches: S = 30000 at G = 8 in 8 slices of 3750 keys, past the shared
+    memory's 24576 scores (the global scratch, the scales and mask staged),
+    and S = 20000 at B * Hkv = 136 >= 132 SMs (C = 1: the scratch, the
+    scales and mask read in place)."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    q, k8, v8, kvs, mask = _int8_decode(gen, B, S, hq, hkv, D)
+    n = di.decode_attention_int8.launches
+    _check_int8_decode(q, k8, v8, kvs, mask)
+    assert di.decode_attention_int8.launches == n + 1
+    assert di.decode_attention_int8.last_cluster == C
+
+
+def test_decode_int8_kernel_with_every_slot_masked_and_the_same_bits(gen):
+    """A row whose every slot is masked gives what the plain version gives;
+    a second launch gives the same bits (integer atomics, a fixed order of
+    the cluster's float sums)."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    for B, S in ((8, 214), (64, 214), (1, 20000), (2, 5000)):
+        q, k8, v8, kvs, mask = _int8_decode(gen, B, S, 32, 8, 64)
+        mask[min(1, B - 1)] = False
+        out = _check_int8_decode(q, k8, v8, kvs, mask)
+        assert bool(torch.isfinite(out).all())
+        assert torch.equal(out, di.decode_attention_int8(q, k8, v8, kvs,
+                                                         mask))
+
+
+def test_decode_int8_kernel_refused_cluster_raises(gen, monkeypatch):
+    """A cluster size the C entry refuses raises; nothing falls back."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    q, k8, v8, kvs, mask = _int8_decode(gen, 1, 214, 32, 8, 64)
+    n = di.decode_attention_int8.launches
+    monkeypatch.setattr(di, "cluster_size_int8", lambda *a, **k: 9)
+    with pytest.raises(RuntimeError, match="decode_attention_int8"):
+        di.decode_attention_int8(q, k8, v8, kvs, mask)
+    assert di.decode_attention_int8.launches == n
 
 
 @pytest.mark.parametrize("int8", [False, True])
