@@ -50,10 +50,13 @@ Phases, one line each, any failure exits non-zero:
    a fixed batch of 16 x 10 s (SpecAugment 0.05, default dropouts), with
    the launch counts, samples/s, ms/step, peak memory and a falling loss;
 10. CTC kernels: #11 (alpha) and #12 (beta + log-posterior) against their
-    plain versions at the hybrid path's lattice (B = 16, T = 499, S = 21)
-    and on a ragged long-label one (S = 201), beside the yardstick
-    `F.ctc_loss` (forward for #11, forward and backward for #12) on the
-    same log-probs over the CTC head's 128265 outputs;
+    plain versions and their own second launch at the hybrid path's
+    lattice (B = 16, T = 499, S = 21), at 35-id labels (S = 71) and on a
+    ragged long-label one (S = 201; there every route of the kernels, and
+    chunks of 1-2 steps with the L2 cache flushed, against the plan's
+    bits), each with its CUDA-graph time and its time a step, beside the
+    yardstick `F.ctc_loss` (forward for #11, forward and backward for #12)
+    on the same log-probs over the CTC head's 128265 outputs;
 11. hybrid train: the JAX bench's flagship recipe through `Trainer`
     (hybrid SOT+CTC at ctc_alpha 0.7, the separator, two CTC heads of
     128265 outputs, PCGrad, the decoder frozen with LoRA): the encoder,
@@ -1023,7 +1026,10 @@ CTC_NO_GRAPH = "not captured: F.ctc_loss reads its lengths on the host"
 def ctc_inputs(torch, g, B, T, V, L, ragged):
     """log-probs [B, T, V] f32, int32 lengths and labels of L ids. ragged:
     input lengths from T down to 1, label lengths from L down to 0, a row
-    of one repeated id (every skip refused) and one impossible row."""
+    of one repeated id (every skip refused), one impossible row, and two
+    rows whose last step (ilen - 1) is the first and the last step of a
+    time chunk of the kernels' shared-memory ring."""
+    from mtasr_tpu_torch.ops.kernels import ctc as kc
     lp = torch.log_softmax(torch.randn((B, T, V), generator=g,
                                        device="cuda") * 2, -1)
     labels = torch.randint(3, 40, (B, L), generator=g, device="cuda")
@@ -1034,26 +1040,67 @@ def ctc_inputs(torch, g, B, T, V, L, ragged):
         llen.copy_(torch.linspace(L, 0, B, device="cuda").int())
         labels[1] = labels[1, 0]
         ilen[2], llen[2] = L // 2, L
+        tc = kc.ctc_plan(2 * L + 1, T).Tc
+        mid = max(T // tc // 2, 1) * tc
+        ilen[3], ilen[4] = min(mid + 1, T), min(mid, T)
     return lp, ilen, labels, llen
+
+
+def ctc_routes_check(torch, kc, emit, ilen, llen, allow, want) -> None:
+    """Every other route the CTC kernels take for this lattice (one or two
+    positions a lane, each halo width), and the plan's route with a chunk
+    of one and of two steps, give the plan's bits. The short chunks run 4
+    times each with the L2 cache flushed and other values left in shared
+    memory: every step then reads a chunk staged a step or two before from
+    device memory, and a read of the ring before its copy has landed (a
+    cp.async wait one group short) shows (PERF.md, Findings)."""
+    B, T, S = emit.shape
+    plan = kc.ctc_plan
+    mine = plan(S, T)
+    forced = [(K, H, 0, 1) for K, H in kc.ctc_routes(S)] + \
+        [(mine.K, mine.halo, 1, 4), (mine.K, mine.halo, 2, 4)]
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    try:
+        for K, H, Tc, reps in forced:
+            kc.ctc_plan = lambda S_, T_, K=K, H=H, Tc=Tc: \
+                kc.plan_for(S_, T_, K, H, Tc)
+            for _ in range(reps):
+                kc.ctc_alpha(emit - 1, ilen, llen, allow)
+                flush.add_(1)
+                a_r, f_r = kc.ctc_alpha(emit, ilen, llen, allow)
+                flush.add_(1)
+                p_r = kc.ctc_beta_post(emit, want[0], ilen, llen, allow)
+                if not all(torch.equal(x, y)
+                           for x, y in zip((a_r, f_r, p_r), want)):
+                    fail(f"ctc kernels (S = {S}): route K = {K}, halo {H}, "
+                         f"Tc {Tc or 'planned'} gave other bits than the "
+                         "plan's")
+    finally:
+        kc.ctc_plan = plan
+    del flush
+    say(f"kernel ctc (S = {S}, ragged): routes (positions a lane, halo "
+        f"lanes, Tc, runs) {forced} give the plan's bits")
 
 
 def ctc_kernel_phase(torch, card: str, records, cfg, batch) -> None:
     """#11 and #12 against their plain versions at the hybrid path's
-    lattice (the train batch's talker streams: B = 16, T = 499, S = 21) and
-    on a ragged lattice of 100-id labels (S = 201); the log-probs span the
-    CTC head's outputs. Yardsticks: `F.ctc_loss` (reduction 'none',
+    lattice (the train batch's talker streams: B = 16, T = 499, S = 21), at
+    35-id labels (S = 71, about a 10 s talker's LLaMA-3 tokens) and on a
+    ragged lattice of 100-id labels (S = 201); the log-probs span the CTC
+    head's outputs. Each kernel's CUDA-graph time and time a step (graph
+    ms / T) at each lattice. Yardsticks: `F.ctc_loss` (reduction 'none',
     zero_infinity) forward for #11, forward and backward for #12, on the
     same log-probs; the port's gather + #11 is timed beside the first."""
     import torch.nn.functional as F
 
     from mtasr_tpu_torch.ops.kernels import ctc as kc
-    from mtasr_tpu_torch.tools.timing import cuda_ms
+    from mtasr_tpu_torch.tools.timing import cuda_ms, graph_ms
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 5)
     B, T, V = TRAIN_BATCH, cfg.encoder.conv_output_length(SR * AUDIO_S), \
         cfg.ctc_odim
     L = batch.arrays["label_spks"].shape[2]
-    for ragged, L_case in ((False, L), (True, 100)):
+    for ragged, L_case in ((False, L), (False, 35), (True, 100)):
         lp, ilen, labels, llen = ctc_inputs(torch, g, B, T, V, L_case, ragged)
         ext, allow = kc.lattice(labels, cfg.ctc_blank_id, V)
         S = ext.shape[1]
@@ -1061,6 +1108,10 @@ def ctc_kernel_phase(torch, card: str, records, cfg, batch) -> None:
         def gather():
             return lp.gather(2, ext[:, None].expand(-1, T, -1)).contiguous()
         emit = gather()
+        # a launch on other emissions first: shared memory then holds other
+        # values, so a chunk read before it has landed cannot pass
+        decoy = kc.ctc_alpha(emit - 1, ilen, llen, allow)[0]
+        kc.ctc_beta_post(emit - 1, decoy, ilen, llen, allow)
         alpha, final = kc.ctc_alpha(emit, ilen, llen, allow)
         log_post = kc.ctc_beta_post(emit, alpha, ilen, llen, allow)
         a_ref, f_ref = kc.ctc_alpha_plain(emit, ilen, llen, allow)
@@ -1076,6 +1127,14 @@ def ctc_kernel_phase(torch, card: str, records, cfg, batch) -> None:
                 fail(f"ctc {name} (S = {S}): max_abs_err {err} over "
                      f"rtol {CTC_RTOL} + atol {CTC_ATOL}")
             errs[name] = err
+        again = kc.ctc_alpha(emit, ilen, llen, allow)
+        if not (torch.equal(again[0], alpha) and torch.equal(again[1], final)
+                and torch.equal(kc.ctc_beta_post(emit, alpha, ilen, llen,
+                                                 allow), log_post)):
+            fail(f"ctc kernels (S = {S}): a second launch gave other bits")
+        if ragged:
+            ctc_routes_check(torch, kc, emit, ilen, llen, allow,
+                             (alpha, final, log_post))
         loss = kc.zero_infinity_loss(kc.final_ll(final, llen))
         lp_t = lp.transpose(0, 1)
         ref_loss = F.ctc_loss(lp_t, labels, ilen, llen,
@@ -1085,11 +1144,19 @@ def ctc_kernel_phase(torch, card: str, records, cfg, batch) -> None:
         say(f"kernel ctc (S = {S}{', ragged' if ragged else ''}): "
             f"max_abs_err alpha {errs['alpha']:.6g} final "
             f"{errs['final']:.6g} log_post {errs['log_post']:.6g} (rtol "
-            f"{CTC_RTOL} + atol {CTC_ATOL}); loss vs F.ctc_loss max_abs_err "
-            f"{loss_err:.6g} (losses up to {float(ref_loss.max()):.1f})")
+            f"{CTC_RTOL} + atol {CTC_ATOL}), a second launch the same bits; "
+            f"loss vs F.ctc_loss max_abs_err {loss_err:.6g} (losses up to "
+            f"{float(ref_loss.max()):.1f}); route {tuple(kc.ctc_plan(S, T))}")
         if not loss_err <= 1e-3 * max(1.0, float(ref_loss.abs().max())):
             fail(f"ctc loss against F.ctc_loss: {loss_err}")
-        if ragged:
+        if ragged or L_case != L:
+            g11 = graph_ms(lambda: kc.ctc_alpha(emit, ilen, llen, allow))
+            g12 = graph_ms(lambda: kc.ctc_beta_post(emit, alpha, ilen, llen,
+                                                    allow))
+            say(f"kernel ctc (S = {S}{', ragged' if ragged else ''}): in a "
+                f"CUDA graph ctc_alpha {g11:.4f} ms ({1e6 * g11 / T:.1f} ns "
+                f"a step) ctc_beta_post {g12:.4f} ms ({1e6 * g12 / T:.1f} "
+                f"ns a step) [{card}]")
             continue
         lp_g = lp_t.detach().requires_grad_(True)
 
@@ -1127,6 +1194,10 @@ def ctc_kernel_phase(torch, card: str, records, cfg, batch) -> None:
                                               allow),
                bound(nbytes(emit, alpha, log_post) + small, ops, "f32"),
                library_bwd, (B, T, S), CTC_NO_GRAPH)
+        say("kernel ctc (S = {}): a step in a CUDA graph ctc_alpha {:.1f} "
+            "ns ctc_beta_post {:.1f} ns [{}]".format(
+                S, 1e6 * records["ctc_alpha"]["graph_ms"] / T,
+                1e6 * records["ctc_beta_post"]["graph_ms"] / T, card))
         del lp_g
     del lp, emit, alpha, log_post
     torch.cuda.empty_cache()

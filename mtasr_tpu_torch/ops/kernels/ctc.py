@@ -9,17 +9,20 @@ zero_infinity=True) semantics.
   `_bwd_kernel :87-148`): the beta recursion fused with alpha + beta, the
   log-posterior [B, T, S].
 
-For CUDA tensors both launch the kernels of `csrc/ctc.cu`; for CPU tensors
-they take their plain versions, step-by-step loops of the same f32
-arithmetic. `CTCLossFunction` is the counterpart of the `jax.custom_vjp`
-at `ctc_kernel.py:229-290`: forward is the emission gather and #11, backward
-#12, the combine with logZ and the scatter back onto the vocabulary; the
-fused loss from hidden states (`ops/ctc_fused.py`) runs the same two
-kernels. Each wrapper counts its launches in `launches`.
+For CUDA tensors both launch the kernels of `csrc/ctc.cu`: a batch row a
+block, a lane on K neighbouring lattice positions, warps with halo lanes
+past 32 positions, the emissions staged Tc steps at a time (`ctc_plan`, a
+pure function of the lattice); for CPU tensors they take their plain
+versions, step-by-step loops of the same f32 arithmetic. `CTCLossFunction`
+is the counterpart of the `jax.custom_vjp` at `ctc_kernel.py:229-290`:
+forward is the emission gather and #11, backward #12, the combine with
+logZ and the scatter back onto the vocabulary; the fused loss from hidden
+states (`ops/ctc_fused.py`) runs the same two kernels. Each wrapper counts
+its launches in `launches`.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -28,8 +31,80 @@ from mtasr_tpu_torch.ops.kernels import _build
 LOG_EPS = -1e30
 MAX_S = 1024          # lattice positions a block's threads can own
 
-_ARGS = [_build.I] + [_build.P] * 7 + [_build.I] * 3 + [_build.P]
+_ARGS = [_build.I] + [_build.P] * 7 + [_build.I] * 8 + [_build.P]
 _ALPHA, _BETA_POST = 0, 1
+
+TC_MAX = 64                  # steps a staged chunk
+RING_BYTES = 200 * 1000      # #12's two chunks of emit and alpha
+SMEM_MAX = 232448            # shared memory a block may have on the H100
+
+
+class CTCPlan(NamedTuple):
+    K: int            # neighbouring lattice positions a lane (1 or 2)
+    warps: int        # warps a batch row (one block)
+    halo: int         # halo lanes a warp when warps > 1 (else 0)
+    Tc: int           # steps a staged chunk
+    stages: int       # chunks in the ring
+    smem_bytes: int   # #12's shared memory (#11 stages emit alone)
+
+
+def _chunk_floats(rows: int, S: int) -> int:
+    return (rows * S + 7) // 4 * 4
+
+
+def smem_bytes(which: int, S: int, K: int, warps: int, halo: int, Tc: int,
+               stages: int) -> int:
+    """`csrc/ctc.cu` `smem_bytes`: the staged chunks (#11: Tc rows of emit;
+    #12: Tc + 1 rows of emit and Tc of alpha) and, with several warps, the
+    halo exchange."""
+    ring = _chunk_floats(Tc, S) if which == _ALPHA else \
+        _chunk_floats(Tc + 1, S) + _chunk_floats(Tc, S)
+    edge = 2 * warps * halo * K + K if warps > 1 else 0
+    return 4 * (stages * ring + edge)
+
+
+def plan_for(S: int, T: int, K: int, halo: int, Tc: int = 0) -> CTCPlan:
+    """Route (K positions a lane, `halo` lanes a warp; 0: one warp) for S
+    positions: as many warps as the warps' own lanes need, and (unless Tc
+    is given) the most steps a chunk, up to TC_MAX, whose two chunks of
+    #12's emit and alpha fit RING_BYTES; two chunks in the ring unless T
+    fits one."""
+    warps = 1 if halo == 0 else -(-S // ((32 - halo) * K))
+    Tc = Tc or max(1, min(TC_MAX, RING_BYTES // (2 * 2 * 4 * S)))
+    stages = 1 if T <= Tc else 2
+    return CTCPlan(K, warps, halo, Tc, stages,
+                   smem_bytes(_BETA_POST, S, K, warps, halo, Tc, stages))
+
+
+def ctc_routes(S: int) -> List[Tuple[int, int]]:
+    """Every (K, halo) the kernels take for S positions: one warp of one
+    position a lane up to S = 32; past that K = 1 or 2 on more than one
+    warp, with an even number of halo positions and at most 32 warps."""
+    if S <= 32:
+        return [(1, 0)]
+    return [(K, H) for K in (1, 2) for H in (2, 4, 8, 16)
+            if 32 * K < S and H * K % 2 == 0
+            and -(-S // ((32 - H) * K)) <= 32]
+
+
+def ctc_plan(S: int, T: int) -> CTCPlan:
+    """The route the kernels take for S lattice positions and T steps: one
+    warp, one position a lane, up to S = 32; past that one position a lane
+    up to S = 300 and two beyond (on the H100, one is faster at S = 201,
+    two at 401 and past), on the halo (2, 4, 8 or 16 lanes) that needs the
+    fewest warps on each of an SM's four schedulers, and of those the
+    widest (the fewest exchanges)."""
+    if not 1 <= S <= MAX_S:
+        raise ValueError(f"S = {S} (1..{MAX_S})")
+    if S <= 32:
+        return plan_for(S, T, 1, 0)
+    K = 1 if S <= 300 else 2
+
+    def per_scheduler(H):
+        return -(-plan_for(S, T, K, H).warps // 4)
+    halo = min((H for k, H in ctc_routes(S) if k == K),
+               key=lambda H: (per_scheduler(H), -H))
+    return plan_for(S, T, K, halo)
 
 
 def build():
@@ -180,6 +255,7 @@ def _check(name, emit, input_lengths, label_lengths, allow, alpha=None):
 
 def _launch(which, name, emit, alpha_in, allow, ilen, llen, out, final):
     B, T, S = emit.shape
+    plan = ctc_plan(S, T)
     lib = build()
     with torch.cuda.device(emit.device):
         code = lib.ctc_launch(
@@ -187,7 +263,8 @@ def _launch(which, name, emit, alpha_in, allow, ilen, llen, out, final):
             None if alpha_in is None else alpha_in.data_ptr(),
             allow.data_ptr(), ilen.data_ptr(), llen.data_ptr(),
             out.data_ptr(), None if final is None else final.data_ptr(),
-            B, T, S, _build.stream_of(emit))
+            B, T, S, plan.K, plan.warps, plan.halo, plan.Tc, plan.stages,
+            _build.stream_of(emit))
     _build.check(lib, code, name)
 
 

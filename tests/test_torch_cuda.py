@@ -832,6 +832,117 @@ def test_ctc_kernels(gen, B, T, V, L):
     torch.testing.assert_close(loss, ref, rtol=1e-4, atol=1e-3)
 
 
+def _ctc_lattice(g, B, T, L, V=40):
+    from mtasr_tpu_torch.ops.kernels import ctc as kc
+    lp, ilen, labels, llen, blank = _ctc_inputs(g, B, T, V, L)
+    ext, allow = kc.lattice(labels, blank, V)
+    emit = lp.gather(2, ext[:, None].expand(-1, T, -1)).contiguous()
+    return emit, ilen, llen, allow
+
+
+def _ctc_run(emit, ilen, llen, allow):
+    from mtasr_tpu_torch.ops.kernels import ctc as kc
+    alpha, final = kc.ctc_alpha(emit, ilen, llen, allow)
+    return alpha, final, kc.ctc_beta_post(emit, alpha, ilen, llen, allow)
+
+
+def _ctc_check(emit, ilen, llen, allow):
+    """#11 and #12 within rtol 1e-5 + atol 1e-4 of their plain versions,
+    and a second launch equal bit for bit; returns the outputs. A launch on
+    other emissions goes first, so that shared memory holds other values
+    and a chunk read before it has landed cannot pass."""
+    from mtasr_tpu_torch.ops.kernels import ctc as kc
+    _ctc_run(emit - 1, ilen, llen, allow)
+    outs = _ctc_run(emit, ilen, llen, allow)
+    a_ref, f_ref = kc.ctc_alpha_plain(emit, ilen, llen, allow)
+    p_ref = kc.ctc_beta_post_plain(emit, outs[0], ilen, llen, allow)
+    for out, ref in zip(outs, (a_ref, f_ref, p_ref)):
+        _ctc_close(out, ref)
+    for x, y in zip(outs, _ctc_run(emit, ilen, llen, allow)):
+        assert torch.equal(x, y)
+    return outs
+
+
+@pytest.mark.parametrize("T", [1, 61])
+@pytest.mark.parametrize("L", [15, 16, 31, 32, 35, 100, 511])
+def test_ctc_kernels_at_lane_and_warp_edges(gen, L, T):
+    """S = 31, 33, 63, 65, 71, 201, 1023: one lane's positions, one warp's
+    and several warps' edges; one step and a T no chunk divides."""
+    _ctc_check(*_ctc_lattice(gen, 5, T, L))
+
+
+@pytest.mark.parametrize("steps", ["one", "below_a_chunk", "chunks_and_some"])
+@pytest.mark.parametrize("L", [10, 35, 100])
+def test_ctc_kernels_over_the_chunk_ring(gen, L, steps):
+    """T = 1, T one step short of a chunk, and 2 Tc + 3 (a partial last
+    chunk), at the lattices the plan stages in chunks of different Tc."""
+    from mtasr_tpu_torch.ops.kernels import ctc as kc
+    Tc = kc.ctc_plan(2 * L + 1, 10 ** 4).Tc
+    T = {"one": 1, "below_a_chunk": max(Tc - 1, 1),
+         "chunks_and_some": 2 * Tc + 3}[steps]
+    _ctc_check(*_ctc_lattice(gen, 5, T, L))
+
+
+@pytest.mark.parametrize("L", [10, 35, 100])
+def test_ctc_kernels_end_rows_at_chunk_edges(gen, L):
+    """Rows whose last step (ilen - 1) is the first or the last step of a
+    chunk, the first step of all, or one past a chunk's first step."""
+    from mtasr_tpu_torch.ops.kernels import ctc as kc
+    Tc = kc.ctc_plan(2 * L + 1, 10 ** 4).Tc
+    T = 3 * Tc + 5
+    emit, ilen, llen, allow = _ctc_lattice(gen, 8, T, L)
+    ends = [Tc + 1, 2 * Tc, Tc, 1, 2 * Tc + 1, Tc + 2, T, 3 * Tc]
+    ilen.copy_(torch.tensor([min(e, T) for e in ends], dtype=torch.int32))
+    _ctc_check(emit, ilen, llen, allow)
+
+
+@pytest.mark.parametrize("Tc", [1, 2, 3])
+@pytest.mark.parametrize("L", [10, 35, 100, 511])
+def test_ctc_kernels_with_a_chunk_of_few_steps(gen, L, Tc, monkeypatch):
+    """The plan's route with a chunk of Tc steps, 4 times with the L2 cache
+    flushed and other values left in shared memory: each step then reads a
+    chunk staged one to three steps before from device memory, so a read
+    of the ring before its copy has landed shows."""
+    from mtasr_tpu_torch.ops.kernels import ctc as kc
+    plan = kc.ctc_plan
+    monkeypatch.setattr(kc, "ctc_plan", lambda S, T: kc.plan_for(
+        S, T, plan(S, T).K, plan(S, T).halo, Tc))
+    emit, ilen, llen, allow = _ctc_lattice(gen, 5, 61, L)
+    want = _ctc_check(emit, ilen, llen, allow)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for _ in range(4):
+        kc.ctc_alpha(emit - 1, ilen, llen, allow)
+        flush.add_(1)
+        alpha, final = kc.ctc_alpha(emit, ilen, llen, allow)
+        flush.add_(1)
+        log_post = kc.ctc_beta_post(emit, want[0], ilen, llen, allow)
+        for x, y in zip((alpha, final, log_post), want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("L", [10, 100])
+def test_ctc_kernels_with_more_rows_than_sms(gen, L):
+    _ctc_check(*_ctc_lattice(gen, 200, 97, L))
+
+
+@pytest.mark.parametrize("L", [15, 35, 100, 511])
+def test_ctc_kernels_every_route_gives_the_same_bits(gen, L, monkeypatch):
+    """Each route that covers the lattice (K positions a lane; the halo
+    lanes a warp, which set the warps and the steps between exchanges),
+    forced in turn, equals the plan's own route bit for bit, ilen - 1 on
+    and off an exchange step."""
+    from mtasr_tpu_torch.ops.kernels import ctc as kc
+    emit, ilen, llen, allow = _ctc_lattice(gen, 8, 45, L)
+    ilen[5:] = torch.tensor([44, 43, 42], dtype=torch.int32)
+    want = _ctc_check(emit, ilen, llen, allow)
+    S = emit.shape[2]
+    for K, H in kc.ctc_routes(S):
+        monkeypatch.setattr(kc, "ctc_plan",
+                            lambda S, T, K=K, H=H: kc.plan_for(S, T, K, H))
+        for x, y in zip(_ctc_run(emit, ilen, llen, allow), want):
+            assert torch.equal(x, y), (K, H)
+
+
 def test_ctc_losses_on_the_card_equal_the_cpu(gen):
     """`ctc_loss` and `ctc_loss_from_hidden` (#11 forward, #12 backward on
     the card) against the same functions on the CPU (plain versions), loss
