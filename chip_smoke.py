@@ -14,7 +14,7 @@ Phases, one line each, any failure exits non-zero:
    kernels at L = 8 and 16 over a full cache), with the error against a
    stated tolerance and both times; the decode kernels (#4, #6) also at
    B = 64 (#4 beside SDPA), and the cluster size each launched at each
-   batch;
+   batch; #7 also at B = 64, L = 16 over S = 1000 slots;
 4. serve (bf16): three `Transcriber.transcribe` calls of 8 padded 6-10 s
    waveforms each, at full width with random bf16 weights from a seeded
    generator, up to 150 new tokens; the kernels' launch counts, set to 0
@@ -394,6 +394,43 @@ def kernel_phase(torch, card: str, records):
               lambda: dc.decode_attention_int8_chunk_plain(qc, k8, v8, kvs,
                                                            mc),
               1, p_step(di, qc, k8, v8, kvs, mc), INT8_WHY, keep=False)
+    chunk_int8_at(torch, card, 64, 16, Hq, Hkv, 1000, D, randn)
+
+
+def chunk_int8_at(torch, card: str, B, L, Hq, Hkv, S, D, randn):
+    """#7 at a headline batch over a long cache (all S staged at once, the
+    scores in registers): its error against its plain version, the same
+    bits on a second launch, its device time in a CUDA graph and its
+    bound; printed, not kept."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    from mtasr_tpu_torch.tools.timing import graph_ms
+    q = randn(B, L, Hq, D)
+    k8, v8, kvs = int8_kv(torch, randn(B, S, Hkv * D), randn(B, S, Hkv * D),
+                          Hkv, D)
+    mask = torch.ones((B, L, S), dtype=torch.bool, device=q.device)
+    for pos in range(L):
+        mask[:, pos, S - L + pos + 1:] = False
+    mask[-1, :, S // 2:S - L] = False
+
+    def run():
+        return dc.decode_attention_int8_chunk(q, k8, v8, kvs, mask)
+    out = run()
+    err, tol = check_err(
+        torch, "decode_attention_int8_chunk", out,
+        dc.decode_attention_int8_chunk_plain(q, k8, v8, kvs, mask), 1,
+        p_step(di, q, k8, v8, kvs, mask))
+    if not torch.equal(run(), out):
+        fail(f"decode_attention_int8_chunk at B = {B}, S = {S}: a second "
+             "launch gave other bits")
+    b_ms, b_by = bound(nbytes(q, k8, v8, kvs, mask, q),
+                       attention_ops(D, Hq * int(mask.sum())), "int8")
+    g_k = graph_ms(run)
+    say(f"kernel decode_attention_int8_chunk at B = {B}, S = {S}: plan "
+        f"{tuple(dc.chunk_int8_plan(L, S, D, Hq // Hkv))} max_abs_err "
+        f"{err:.6g} (tol {tol:.6g}{INT8_WHY}) in a CUDA graph kernel "
+        f"{fmt_ms(g_k)} library none bound {b_ms:.4f} ms ({b_by}; "
+        f"{b_ms / g_k:.3f} of it) shape {(B, L, Hq, S, D)} [{card}]")
 
 
 def int8_kv(torch, kc, vc, Hkv, D):
@@ -492,6 +529,10 @@ def captured_phase(torch, card: str, records, calls) -> None:
                                                              mc),
                 1, p_step(di, q, k8, v8, kvs, mc), INT8_WHY,
                 bound_ms=bound(nbytes(q, k8, v8, kvs, mc, q), ops, "int8"))
+            if not torch.equal(
+                    dc.decode_attention_int8_chunk(q, k8, v8, kvs, mc),
+                    dc.decode_attention_int8_chunk(q, k8, v8, kvs, mc)):
+                fail(f"{name}: a second launch gave other bits")
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
                                            err)
     say(f"captured: {len(calls)} chunk-kernel calls of the served short "

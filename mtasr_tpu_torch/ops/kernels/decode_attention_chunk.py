@@ -10,10 +10,15 @@ prefill that short (short audio) or a chunk. `decode_attention_chunk`
 CUDA kernels of `csrc/decode_attention_chunk.cu` for CUDA tensors and
 take their plain versions for CPU tensors. The kernels replace the TPU
 kernels `decode_attention_chunk` (`decode_attention.py:223`, body
-`_kernel_chunk` at `:138-185`; on the tensor cores through `mma.sync`) and
-`decode_attention_int8_chunk` (`:443`, body `_kernel_int8_chunk` at
-`:377-417`); the head of the `.cu` file says what bounds them on the H100
-and how the designs answer that.
+`_kernel_chunk` at `:138-185`) and `decode_attention_int8_chunk` (`:443`,
+body `_kernel_int8_chunk` at `:377-417`). Both are tensor-core kernels of
+one design: a block serves 16 query rows of one (batch row, kv head),
+stages that head's K and V rows with `cp.async` and lets its warps split
+the keys in tiles (`mma.sync`, bf16 m16n8k16 for #5, int8 m16n8k32 for
+both products of #7); the int8 kernel's launch follows the pure
+`chunk_int8_plan`. Neither needs a scratch buffer at any S. The head of
+the `.cu` file says what bounds them on the H100 and how the designs
+answer that.
 
 The int8 function is not dequantized attention: q is quantized per (row,
 query head), the k scale folds into the scores, the v scale into the
@@ -23,30 +28,71 @@ function in plain PyTorch for any chunk length L.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from mtasr_tpu_torch.ops.int8 import INV127
 from mtasr_tpu_torch.ops.kernels import _build
 
-_ARGS = [_build.I] + [_build.P] * 7 + [_build.I] * 6 + [_build.F, _build.P]
+_ARGS = [_build.I] + [_build.P] * 6 + [_build.I] * 6 + [_build.F] + \
+    [_build.I] * 3 + [_build.P]
 MAX_L = 16
 MAX_SMEM = 232448   # bytes of shared memory a block may use (227 KB)
 
+# the int8 kernel's constants (`kRows`, `kTile8`, `kMaxWarps8`, `kLdRed`)
+ROWS = 16           # query rows of a block: the m of one m16n8k32
+TILE = 32           # keys of a warp's tile: the k of one m16n8k32
+MAX_WARPS = 8
+LD_RED = 68         # int32 a row of a warp's partial output (64 + 4 pad)
+RESIDENT = (1, 2, 4)    # tiles a warp may keep in registers
+
 
 def build():
-    """The kernel's library, built from csrc/decode_attention_chunk.cu."""
+    """The kernels' library, built from csrc/decode_attention_chunk.cu."""
     return _build.load("decode_attention_chunk",
                        "decode_attention_chunk_launch", _ARGS)
 
 
-def smem_bytes(G: int, L: int, S: int, D: int, scores_in_smem: bool) -> int:
-    """Dynamic shared memory of one block of the int8 kernel (the `.cu`
-    file computes the same): the R = G * L rows' scores when they fit, q,
-    two scales a row, and the p @ v partial sums."""
-    R = G * L
-    return 4 * (R * ((S if scores_in_smem else 0) + D + 2) + 512 * G)
+class ChunkInt8Plan(NamedTuple):
+    row_blocks: int   # blocks a (batch row, kv head): 16 query rows each
+    warps: int        # warps a block, each on its own key tiles
+    keys_staged: int  # cache slots a block stages at once (a multiple of 32)
+    scores_resident: int  # tiles a warp keeps in registers; 0: recomputed
+    smem_bytes: int   # dynamic shared memory of a block
+
+
+def int8_smem_bytes(L: int, keys: int, D: int, warps: int) -> int:
+    """`Int8Smem` of `csrc/decode_attention_chunk.cu` with `warps` warps
+    that take tiles: rows of DP + 16 bytes (DP = D rounded up to 32) for q8
+    [16], K and V [keys]; the k and v scales [2 keys + 16] bytes each; the
+    mask [L][keys + 16]; two f32 a row; each warp's row max, sum and max p
+    and its [16][68] int32 partial output."""
+    ld = -(-D // 32) * 32 + 16
+    return (ROWS * ld + keys * (2 * ld + 4 + L) + 32 + 16 * L +
+            2 * 4 * ROWS + 3 * 4 * warps * ROWS +
+            4 * warps * ROWS * LD_RED)
+
+
+def chunk_int8_plan(L: int, S: int, D: int, G: int) -> ChunkInt8Plan:
+    """The int8 kernel's launch for L positions, S cache slots, head dim D
+    and G query heads a kv head: ceil(G L / 16) blocks a (batch row, kv
+    head); all S staged at once when they fit the shared memory, else the
+    most 32-key tiles that do, streamed in chunks; a warp a staged tile,
+    up to 8; the scores kept in registers across the passes when the cache
+    is staged at once and a warp has at most 4 tiles (S <= 1024; on an
+    H100 at S = 158 and 1000, recomputing them in each pass is 1.5x
+    slower), else recomputed by each pass."""
+    ld = -(-D // 32) * 32 + 16
+    fixed = int8_smem_bytes(L, 0, D, MAX_WARPS)
+    most = (MAX_SMEM - fixed) // (2 * ld + 4 + L) // TILE * TILE
+    keys = min(-(-S // TILE) * TILE, most)
+    warps = min(MAX_WARPS, keys // TILE)
+    per_warp = -(-(keys // TILE) // warps)
+    resident = next((n for n in RESIDENT if n >= per_warp), 0) \
+        if keys >= S else 0
+    return ChunkInt8Plan(-(-G * L // ROWS), warps, keys, resident,
+                         int8_smem_bytes(L, keys, D, warps))
 
 
 def int8_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -132,16 +178,6 @@ def decode_attention_int8_chunk_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
-def scores_scratch(int8: bool, B: int, L: int, S: int, Hq: int, Hkv: int,
-                   D: int) -> int:
-    """Elements of the f32 score scratch a launch needs: the int8 kernel's
-    R x S scores of every block when they do not fit its shared memory,
-    else 0. The bf16 kernel keeps its scores in registers at any S."""
-    if not int8 or smem_bytes(Hq // Hkv, L, S, D, True) <= MAX_SMEM:
-        return 0
-    return B * Hq * L * S
-
-
 def check_launch_inputs(what: str, int8: bool, q: torch.Tensor,
                         k_cache: torch.Tensor, v_cache: torch.Tensor,
                         kv_scale, mask: torch.Tensor, dims) -> None:
@@ -173,27 +209,24 @@ def launch(what: str, int8: bool, q: torch.Tensor, k_cache: torch.Tensor,
            dims) -> torch.Tensor:
     """Launch the kernel on CUDA tensors q [B, L, Hq, D] with mask
     [B, L, S], or raise with the reason it does not take them
-    (`check_launch_inputs`; 1 <= L <= 16). For the int8 cache, when the
-    G * L rows' scores over S keys do not fit the shared memory, they go to
-    a global scratch buffer (`scores_scratch`). Returns an output shaped as
-    q."""
+    (`check_launch_inputs`; 1 <= L <= 16); the int8 kernel on
+    `chunk_int8_plan`. Returns an output shaped as q."""
     B, S, Hq, Hkv, D = dims
     if not 1 <= L <= MAX_L:
         raise ValueError(f"{what}: the chunk kernel takes 1..{MAX_L} "
                          f"positions, not {L}")
     check_launch_inputs(what, int8, q, k_cache, v_cache, kv_scale, mask,
                         dims)
-    n_scratch = scores_scratch(int8, B, L, S, Hq, Hkv, D)
-    scores = (torch.empty(n_scratch, dtype=torch.float32, device=q.device)
-              if n_scratch else None)
+    plan = chunk_int8_plan(L, S, D, Hq // Hkv) if int8 else None
     out = torch.empty_like(q)
     lib = build()
     with torch.cuda.device(q.device):
         code = lib.decode_attention_chunk_launch(
             int(int8), q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             kv_scale.data_ptr() if int8 else None, mask.data_ptr(),
-            out.data_ptr(), scores.data_ptr() if scores is not None else None,
-            B, L, S, Hq, Hkv, D, float(D ** -0.5), _build.stream_of(q))
+            out.data_ptr(), B, L, S, Hq, Hkv, D, float(D ** -0.5),
+            *((plan.keys_staged, plan.warps, plan.scores_resident) if int8
+              else (0, 0, 0)), _build.stream_of(q))
     _build.check(lib, code, what)
     return out
 

@@ -372,9 +372,9 @@ def test_decode_int8_kernel_refused_cluster_raises(gen, monkeypatch):
                                             (1, 7, 40, 6, 6, 64),
                                             (2, 16, 1000, 32, 8, 64)])
 def test_chunk_kernel(gen, int8, B, L, S, hq, hkv, D):
-    """S = 1000 at L = 16, G = 4: past the ~810 keys whose scores fit the
-    int8 kernel's shared memory, so its scores go to the global scratch
-    (the bf16 kernel keeps its scores in registers at any S)."""
+    """S = 1000 at L = 16, G = 4: the int8 kernel stages all 1000 keys at
+    once and keeps 4 tiles of scores a warp in registers (both kernels
+    keep their scores in registers at any S, with no scratch)."""
     from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
     from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
     q = _randn(gen, B, L, hq, D)
@@ -421,6 +421,86 @@ def test_chunk_bf16_kernel_edges(gen, B, L, S, hq, hkv, D):
     p = float(torch.tensor(1.0 / S).to(torch.bfloat16))
     mean = p * vc[0].float().reshape(S, hkv, D).sum(0)
     _check(out[0, -1], mean.repeat_interleave(hq // hkv, 0), 4)
+
+
+def _chunk_int8_inputs(gen, B, L, S, hq, hkv, D):
+    """q, an int8 cache and a random mask with key 0 open in every row
+    and the last position of batch row 0 fully masked."""
+    q = _randn(gen, B, L, hq, D)
+    k8, v8, kvs = _int8_cache(gen, B, S, hkv, D)
+    mask = torch.rand((B, L, S), generator=gen, device="cuda") > 0.3
+    mask[:, :, 0] = True
+    mask[0, -1] = False
+    return q, k8, v8, kvs, mask
+
+
+@pytest.mark.parametrize("B,L,S,hq,hkv,D", [
+    (2, 16, 300, 32, 4, 64),     # G = 8, L = 16: 128 rows, 8 row blocks
+    (2, 4, 1, 8, 2, 64),         # one cache slot
+    (1, 8, 20000, 32, 8, 64),    # a long cache: streamed, recomputed
+    (2, 3, 70, 4, 2, 36),        # D = 36: 4-byte copies, padded to 64
+    (2, 5, 123, 16, 4, 40),      # D = 40: 8-byte copies
+    (1, 6, 90, 12, 3, 200),      # D = 200: four rounds of 64 columns
+    (1, 5, 50, 8, 8, 256),
+    (3, 1, 214, 32, 8, 64),      # L = 1, as a caller may send it
+])
+def test_chunk_int8_kernel_edges(gen, B, L, S, hq, hkv, D):
+    """#7 at the edges of what it takes, under a random mask with one
+    fully masked row (every score -1e9, every key in the sum: the mean of
+    v weighted by vs, as the TPU kernel and the plain version give; the
+    keys that pad S to a tile stay out of it), and the same bits on a
+    second launch."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    q, k8, v8, kvs, mask = _chunk_int8_inputs(gen, B, L, S, hq, hkv, D)
+    before = dc.decode_attention_int8_chunk.launches
+    out = dc.decode_attention_int8_chunk(q, k8, v8, kvs, mask)
+    again = dc.decode_attention_int8_chunk(q, k8, v8, kvs, mask)
+    ref, sp = di.int8_cache_attention(q, k8, v8, kvs, mask)
+    torch.cuda.synchronize()
+    assert dc.decode_attention_int8_chunk.launches == before + 2
+    _check_int8(out, ref.to(torch.bfloat16), sp)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("keys,resident", [(None, 0), (64, 0), (32, 0),
+                                           (None, 4)])
+@pytest.mark.parametrize("S", [158, 300])
+def test_chunk_int8_kernel_every_route(gen, S, keys, resident, monkeypatch):
+    """The plan's other routes at S = 158 and 300 (L = 16, G = 4): the
+    scores recomputed by each pass, the cache streamed in chunks of 2 and
+    1 tiles, and more resident tiles than a warp needs; each against the
+    plain version, and a route that keeps the plan's tiles and warps gives
+    the plan's own bits (only the tiles' order sets the sum's)."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    q, k8, v8, kvs, mask = _chunk_int8_inputs(gen, 2, 16, S, 16, 4, 64)
+    mine = dc.decode_attention_int8_chunk(q, k8, v8, kvs, mask)
+    plan = dc.chunk_int8_plan(16, S, 64, 4)
+    forced = plan._replace(keys_staged=keys or plan.keys_staged,
+                           scores_resident=resident)
+    monkeypatch.setattr(dc, "chunk_int8_plan", lambda *a: forced)
+    out = dc.decode_attention_int8_chunk(q, k8, v8, kvs, mask)
+    ref, sp = di.int8_cache_attention(q, k8, v8, kvs, mask)
+    torch.cuda.synchronize()
+    _check_int8(out, ref.to(torch.bfloat16), sp)
+    if keys is None:
+        assert torch.equal(out, mine)
+
+
+def test_chunk_int8_kernel_refused_plan_raises(gen, monkeypatch):
+    """A plan the kernel cannot take (scores resident over a cache staged
+    in chunks) is refused by the launch and raised, not routed to the
+    plain version."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+    q, k8, v8, kvs, mask = _chunk_int8_inputs(gen, 1, 8, 300, 32, 8, 64)
+    plan = dc.chunk_int8_plan(8, 300, 64, 4)
+    monkeypatch.setattr(dc, "chunk_int8_plan", lambda *a: plan._replace(
+        keys_staged=64, scores_resident=4))
+    n = dc.decode_attention_int8_chunk.launches
+    with pytest.raises(RuntimeError, match="decode_attention_int8_chunk"):
+        dc.decode_attention_int8_chunk(q, k8, v8, kvs, mask)
+    assert dc.decode_attention_int8_chunk.launches == n
 
 
 def test_int8_linear_small_batch_pads_to_the_int8_gemm(gen):

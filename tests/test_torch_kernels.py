@@ -222,24 +222,50 @@ def test_chunk_plain_matches_pallas_kernel(L, hq, hkv, int8, pallas_calls):
                                    rtol=1e-5)
 
 
-@pytest.mark.parametrize("L,S,hq,hkv,D,int8_scratch", [
-    (8, 158, 32, 8, 64, False),      # the served short prefill
-    (16, 800, 32, 8, 64, False),
-    (16, 1000, 32, 8, 64, True),     # past ~810 keys at L = 16, G = 4
-    (16, 20000, 64, 8, 256, True),
-    (1, 20000, 32, 8, 64, True),     # #6 over a long cache
+@pytest.mark.parametrize("L,S,hq,hkv,D,chunks,resident", [
+    (8, 158, 32, 8, 64, 1, 1),       # the served short prefill
+    (16, 800, 32, 8, 64, 1, 4),
+    (16, 1000, 32, 8, 64, 1, 4),     # the old kernel's scratch began here
+    (16, 20000, 64, 8, 256, 63, 0),  # streamed, scores recomputed
+    (1, 20000, 32, 8, 64, 18, 0),
 ])
-def test_chunk_score_scratch_is_for_the_int8_kernel_only(L, S, hq, hkv, D,
-                                                         int8_scratch):
-    """The bf16 kernel (#5) keeps its scores in registers at any S and gets
-    no scratch; the int8 kernel gets a [B, Hq, L, S] f32 one exactly when
-    its R x S scores do not fit the shared memory."""
-    B = 2
-    assert dc.scores_scratch(False, B, L, S, hq, hkv, D) == 0
-    fits = dc.smem_bytes(hq // hkv, L, S, D, True) <= dc.MAX_SMEM
-    assert fits != int8_scratch
-    assert dc.scores_scratch(True, B, L, S, hq, hkv, D) == \
-        (B * hq * L * S if int8_scratch else 0)
+def test_chunk_int8_plan_needs_no_scratch(L, S, hq, hkv, D, chunks,
+                                          resident):
+    """The int8 kernel's plan: 16 query rows a block, the cache staged at
+    once or in chunks of whole 32-key tiles within the shared memory, the
+    scores in registers only when all S are staged and a warp has at most
+    4 tiles; the launch takes no buffer but q, the caches, the scales, the
+    mask and the output."""
+    p = dc.chunk_int8_plan(L, S, D, hq // hkv)
+    assert p.row_blocks == -(-hq // hkv * L // 16)
+    assert p.keys_staged % 32 == 0 and -(-S // p.keys_staged) == chunks
+    assert p.scores_resident == resident
+    assert p.warps == min(8, p.keys_staged // 32)
+    assert p.smem_bytes == dc.int8_smem_bytes(L, p.keys_staged, D, p.warps)
+    assert p.smem_bytes <= dc.MAX_SMEM
+    assert not hasattr(dc, "scores_scratch") and \
+        "scratch" not in dc.launch.__code__.co_varnames
+
+
+@pytest.mark.parametrize("L", [1, 2, 8, 16])
+def test_chunk_int8_plan_fits_every_shape(L):
+    """Every S up to 4096 and a long cache, G <= 8, D <= 256 (multiples of
+    4): the block's shared memory fits 227 KB, one chunk holds S whenever
+    S fits, and a resident plan covers every tile of S with its warps."""
+    for D in (4, 36, 40, 64, 128, 200, 256):
+        most = dc.chunk_int8_plan(L, 10 ** 6, D, 8).keys_staged
+        for S in list(range(1, 4097, 7)) + [20000, 10 ** 6]:
+            for G in (1, 8):
+                p = dc.chunk_int8_plan(L, S, D, G)
+                assert p.smem_bytes <= dc.MAX_SMEM, (L, S, D)
+                assert 1 <= p.warps <= 8 and p.keys_staged >= 32
+                assert p.keys_staged == min(-(-S // 32) * 32, most)
+                if p.scores_resident:
+                    assert p.keys_staged >= S
+                    assert p.warps * p.scores_resident * 32 >= S
+                assert bool(p.scores_resident) == (S <= min(most, 1024))
+            assert dc.chunk_int8_plan(L, S, D, 3).row_blocks == \
+                -(-3 * L // 16)
 
 
 @pytest.mark.parametrize("S,permuted", [(499, False), (64, False), (7, True),
