@@ -68,7 +68,30 @@ Phases, one line each, any failure exits non-zero:
 12. CTC serve: `Transcriber.transcribe_ctc` (the one-shot CTC decode) at
     full width on 8 padded 6-10 s waveforms, two calls, with the launch
     counts; the CTC heads' logits with kernels against the plain versions
-    within the bf16 whole-model gate; K strings per input.
+    within the bf16 whole-model gate; K strings per input;
+13. model dirs, at full width (bf16, seed 0) in a temporary directory,
+    each leg with the launch counts set to 0 just before it and read just
+    after: (1) `save_model`, then `Transcriber.from_pretrained` on the
+    card: the parameters bit-equal and the greedy tokens of 8 padded 6-10
+    s waveforms identical to the in-memory model's (#1-#4 launch), with
+    the save and load GB/s; (3) HF-layout WavLM and LLaMA directories
+    (LLaMA-3.2-1B's 128256 rows, tied head) from the same weights,
+    assembled by the create CLI's `create_from_pretrained`: every grafted
+    tensor bit-equal to its source, the 8 grown rows equal to the mean
+    row; (2) `from_pretrained(quantize="w8a8", kv_quant=True)`, the
+    streamed load: int8 weights and scales bit-equal to the in-memory
+    model after `quantize_for_serving`, tokens identical, the peak device
+    memory inside the final footprint plus the largest tensor, beside
+    load-then-quantize's (#6 launches); (4) `cli.finetune_asr` on a Kaldi
+    directory of 8 generated 10 s waveforms (LoRA, decoder frozen, B = 4):
+    4 steps straight, and 2 steps resumed to 4, on deterministic
+    algorithms: the trainable tensors and AdamW moments of checkpoint-4
+    bit-equal (within RESUME_TOL by rel-L2 where an op has no
+    deterministic implementation), the checkpoint's size and write time
+    (#8-#10 launch); (5) `cli.inference_asr --quantize w8a8 --kv_quant` and
+    `--ctc_decoding` on a hybrid model directory over the same Kaldi
+    directory: `label`, `decod` and `wer` written, the greedy hypotheses
+    equal to `Transcriber.transcribe`'s; the phase's wall time.
 
 Every kernel's record carries its error, its time, its plain version's
 time, the least time the card could take (`bound_ms`, from the bytes the
@@ -87,12 +110,15 @@ are blocked before anything is imported.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 SR = 16000
 BATCH = 8
@@ -980,6 +1006,9 @@ def train_phase(torch, card: str, launches) -> None:
                         pcgrad=False)
     trainer = Trainer(cfg, tc, DataConfig(), model,
                       freeze_kwargs=dict(freeze_decoder=True))
+    # the step timing leaves out the checkpoint `train` writes at its end
+    # (phase 13 measures checkpoints)
+    trainer.save = lambda *a, **kw: None
     summ = freeze_summary(model, trainer.mask)
     torch.cuda.synchronize()
     say(f"train: WavLM-Large + LLaMA-3.2-1B bf16 (+ LoRA r 16 f32), "
@@ -1323,6 +1352,7 @@ def hybrid_train_phase(torch, card: str, launches) -> None:
                         max_steps=1000, logging_steps=1, pcgrad=True)
     trainer = Trainer(cfg, tc, DataConfig(), model,
                       freeze_kwargs=dict(freeze_decoder=True))
+    trainer.save = lambda *a, **kw: None     # as in train_phase
     summ = freeze_summary(model, trainer.mask)
     torch.cuda.synchronize()
     say(f"hybrid: WavLM-Large + separator ({cfg.separator_hidden}) + "
@@ -1455,6 +1485,408 @@ def ctc_serve_phase(torch, card: str, launches) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 13: model directories, checkpoints and the CLIs -------------------
+# the fine-tune resume gate: the trainable tensors and AdamW moments of the
+# run resumed at step 2 against the run that went straight to step 4, on
+# deterministic algorithms: bit-equal; where an op warned that it has no
+# deterministic implementation, within the attention-mode gradient gate
+# (GRAD_TOL) by rel-L2 over all trainable tensors
+RESUME_TOL = GRAD_TOL
+LLAMA_VOCAB = 128256        # LLaMA-3.2-1B's own rows; the SOT specials grow it
+FT_STEPS, FT_SAVE, FT_BATCH = 4, 2, 4
+
+
+def gbps(n_bytes: int, seconds: float) -> str:
+    return f"{n_bytes / 1e9:.3f} GB in {seconds:.2f} s ({n_bytes / 1e9 / seconds:.2f} GB/s)"
+
+
+def synced(torch):
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def greedy_tokens(torch, model, cfg, wav, amask, kv_quant=False):
+    from mtasr_tpu_torch.config import GenerationConfig
+    from mtasr_tpu_torch.generate.engine import generate
+    out = generate(model, cfg, wav, amask, max_new_tokens=MAX_NEW,
+                   gen=GenerationConfig(do_sample=False, kv_quant=kv_quant))
+    return out.sequences.cpu()
+
+
+def kernels_ran(names, counts, leg: str) -> None:
+    """Each kernel of `names` launched at least once in the counts of a
+    leg, which were set to 0 just before it."""
+    missing = [n for n in names if counts[n] == 0]
+    if missing:
+        fail(f"model dirs {leg}: kernels {missing} did not launch: {counts}")
+
+
+def hf_dirs_from(torch, cfg, model, root):
+    """HF-layout directories of the model's WavLM (with its adapter) and of
+    its LLaMA cut to LLaMA-3.2-1B's 128256 rows (tied head: no lm_head), as
+    `save_pretrained` lays them out: config.json + model.safetensors.
+    Returns (encoder dir, decoder dir, bytes written)."""
+    from mtasr_tpu_torch.utils import model_io
+    state = model.state_dict()
+    n = 0
+    dirs = []
+    for part, sub in (("encoder", cfg.encoder), ("decoder", cfg.decoder)):
+        d = os.path.join(root, f"hf_{part}")
+        os.makedirs(d)
+        flat = {k[len(part) + 1:]: v for k, v in state.items()
+                if k.startswith(part + ".")}
+        conf = dataclasses.asdict(sub)
+        if part == "decoder":
+            key = "model.embed_tokens.weight"
+            flat[key] = flat[key][:LLAMA_VOCAB]
+            conf["vocab_size"] = LLAMA_VOCAB
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(conf, f)
+        n += model_io.save_flat(os.path.join(d, "model.safetensors"), flat)
+        dirs.append(d)
+    return dirs[0], dirs[1], n
+
+
+def kaldi_dir(root, n: int, seconds: float, seed: int):
+    """A Kaldi directory of `n` generated waveforms (noise x 0.1) with SOT
+    texts of two talkers; returns (dir, wav paths)."""
+    import numpy as np
+
+    from mtasr_tpu_torch.data.audio import write_wav
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, "kaldi")
+    os.makedirs(d)
+    words = ["hello", "world", "good", "day", "one", "two", "three"]
+    paths = []
+    with open(os.path.join(d, "wav.scp"), "w") as fw, \
+            open(os.path.join(d, "text"), "w") as ft:
+        for i in range(n):
+            p = os.path.join(d, f"utt{i}.wav")
+            write_wav(p, rng.standard_normal(int(seconds * SR)) * 0.1)
+            text = (" ".join(rng.choice(words, 3)) + " <sc> "
+                    + " ".join(rng.choice(words, 3)))
+            fw.write(f"utt{i} {p}\n")
+            ft.write(f"utt{i} {text}\n")
+            paths.append(p)
+    return d, paths
+
+
+def model_dirs_phase(torch, card: str, launches) -> None:
+    """Phase 13 (module docstring): the model-directory, checkpoint and CLI
+    layer at full width, in a temporary directory."""
+    import shutil
+    from unittest import mock
+
+    from mtasr_tpu_torch.api import Transcriber
+    from mtasr_tpu_torch.cli import finetune_asr, inference_asr
+    from mtasr_tpu_torch.ops import kernels
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.train import loop as loop_mod
+    from mtasr_tpu_torch.utils import model_io
+    from mtasr_tpu_torch.utils.quantize import quantize_for_serving
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="model_dirs_")
+    free = shutil.disk_usage(root).free
+    say(f"model dirs: {root}, {free / 1e9:.1f} GB free [{card}]")
+
+    def count(fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after (added to `launches`)."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for name, n in counts.items():
+            launches[name] += n
+        return out, counts
+
+    cfg, model, tr = full_width.build(SEED, "cuda", torch.bfloat16)
+    wavs = full_width.waveforms(SEED + 11, 1, BATCH, (6.0, 10.0))[0]
+    wav, amask = one_batch(torch, tr, wavs)
+    ref = greedy_tokens(torch, model, cfg, wav, amask)
+
+    # 1. save_model, then Transcriber.from_pretrained on the card
+    d1 = os.path.join(root, "bf16")
+    t0 = synced(torch)
+    n_model = model_io.save_model(d1, cfg, model)
+    dt_save = time.perf_counter() - t0
+    tr.tokenizer.save(os.path.join(d1, "char_tokenizer.json"))
+    t0 = synced(torch)
+    tr1 = Transcriber.from_pretrained(d1)
+    dt_load = synced(torch) - t0
+    loaded = tr1.model.state_dict()
+    same = all(torch.equal(v, loaded[k]) for k, v in model.state_dict().items())
+    got, counts = count(lambda: greedy_tokens(torch, tr1.model, tr1.cfg,
+                                                   wav, amask))
+    say(f"model dirs 1: save_model {gbps(n_model, dt_save)}; "
+        f"from_pretrained on the card {gbps(n_model, dt_load)} (from the "
+        f"page cache); parameters bit-equal {same}; greedy tokens of "
+        f"{BATCH} padded 6-10 s waveforms identical to the in-memory "
+        f"model's {torch.equal(got, ref)} ({tuple(got.shape)}); launches "
+        f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+    if not same or not torch.equal(got, ref):
+        fail("model dirs 1: the saved directory does not serve the in-memory "
+             "model's tokens")
+    kernels_ran(("conv0_fused", "flash_attention", "decode_attention"),
+                counts, "1")
+    del tr1, loaded
+    torch.cuda.empty_cache()
+
+    # 3. HF-layout directories -> the create CLI's assembly
+    t0 = synced(torch)
+    enc_dir, dec_dir, n_hf = hf_dirs_from(torch, cfg, model, root)
+    dt_hf = time.perf_counter() - t0
+    special = {"pad_token_id": cfg.pad_token_id,
+               "sc_token_id": cfg.sc_token_id, "instruct": False}
+    t0 = synced(torch)
+    ccfg, created = model_io.create_from_pretrained(
+        enc_dir, dec_dir, tokenizer_len=full_width.VOCAB_SIZE,
+        special_ids=special, device="cuda")
+    dt_create = synced(torch) - t0
+    n_bad, grafted = 0, set()
+    params = dict(created.named_parameters())
+    for prefix, d in (("encoder.", enc_dir), ("decoder.", dec_dir)):
+        for k, v in model_io.read_flat(d).items():
+            if prefix + k in params:
+                grafted.add(prefix + k)
+                p = params[prefix + k]
+                if k == "model.embed_tokens.weight":
+                    p = p[:LLAMA_VOCAB]
+                n_bad += not torch.equal(p.cpu(), v)
+    n_graft = len(grafted)
+    src = model_io.read_flat(dec_dir)["model.embed_tokens.weight"]
+    grown = params["decoder.model.embed_tokens.weight"][LLAMA_VOCAB:].cpu()
+    mean = model_io.mean_row(src)          # on the host, in the stored dtype
+    rows_ok = bool((grown == mean).all())
+    fresh = sorted(set(params) - grafted)
+    d3 = os.path.join(root, "created")
+    t0 = synced(torch)
+    n_created = model_io.save_model(d3, ccfg, created)
+    dt_csave = time.perf_counter() - t0
+    say(f"model dirs 3: HF-layout WavLM + LLaMA dirs written "
+        f"{gbps(n_hf, dt_hf)}; create_from_pretrained {dt_create:.2f} s "
+        f"(fresh f32 init on the card, graft, vocabulary {LLAMA_VOCAB} -> "
+        f"{ccfg.decoder.vocab_size}); {n_graft} grafted tensors, "
+        f"{n_graft - n_bad} bit-equal to their source; the "
+        f"{grown.shape[0]} grown rows equal to the mean row {rows_ok}; fresh "
+        f"{fresh}; saved {gbps(n_created, dt_csave)} [{card}]")
+    if n_bad or not rows_ok or not n_graft:
+        fail("model dirs 3: create_from_pretrained did not graft the "
+             "pretrained tensors as they are")
+    del created, params, src
+    shutil.rmtree(enc_dir), shutil.rmtree(dec_dir), shutil.rmtree(d3)
+    torch.cuda.empty_cache()
+
+    # 2. the streamed w8a8 load, int8 KV cache
+    largest = max(v.numel() * v.element_size()
+                  for v in model.state_dict().values())
+    quantize_for_serving(model, "w8a8")
+    ref8 = greedy_tokens(torch, model, cfg, wav, amask, kv_quant=True)
+    torch.cuda.synchronize()
+    peaks = {}
+    for how in ("streamed", "load then quantize"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = synced(torch)
+        if how == "streamed":
+            tr8 = Transcriber.from_pretrained(d1, quantize="w8a8",
+                                              kv_quant=True)
+            held = tr8.model
+        else:
+            _, held = model_io.load_model(d1, "cuda", torch.bfloat16)
+            quantize_for_serving(held, "w8a8")
+        dt = synced(torch) - t0
+        peaks[how] = (torch.cuda.max_memory_allocated() - base,
+                      torch.cuda.memory_allocated() - base, dt)
+        if how != "streamed":
+            del held
+    peak, final, dt8 = peaks["streamed"]
+    s8, m8 = tr8.model.state_dict(), model.state_dict()
+    q_same = set(s8) == set(m8) and all(torch.equal(s8[k], m8[k])
+                                        for k in m8)
+    got8, counts = count(lambda: greedy_tokens(
+        torch, tr8.model, tr8.cfg, wav, amask, kv_quant=True))
+    gib = 2 ** 30
+    say(f"model dirs 2: from_pretrained(quantize=w8a8, kv_quant) streamed "
+        f"in {dt8:.2f} s: peak device memory {peak / gib:.3f} GiB against "
+        f"its final footprint {final / gib:.3f} GiB + the largest tensor "
+        f"{largest / gib:.3f} GiB; load then quantize peaked at "
+        f"{peaks['load then quantize'][0] / gib:.3f} GiB "
+        f"({peaks['load then quantize'][2]:.2f} s); int8 weights, scales "
+        f"and every other tensor bit-equal to the in-memory model after "
+        f"quantize_for_serving {q_same}; greedy tokens identical "
+        f"{torch.equal(got8, ref8)}; launches "
+        f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+    if not q_same or not torch.equal(got8, ref8):
+        fail("model dirs 2: the streamed int8 load differs from "
+             "quantize_for_serving of the in-memory model")
+    if peak > final + largest:
+        fail(f"model dirs 2: streamed-load peak {peak} over the final "
+             f"footprint {final} + the largest tensor {largest}")
+    kernels_ran(("conv0_fused", "flash_attention", "decode_attention_int8"),
+                counts, "2")
+    del tr8, s8, m8, model, tr
+    torch.cuda.empty_cache()
+
+    # 4. the fine-tune CLI: 4 steps straight, and 2 steps resumed to 4
+    data, paths = kaldi_dir(root, 8, float(AUDIO_S), SEED + 12)
+    saves = []
+    real_save = loop_mod.save_checkpoint
+
+    def timed_save(*a, **kw):
+        t0 = synced(torch)
+        path = real_save(*a, **kw)
+        dt = time.perf_counter() - t0
+        saves.append((sum(os.path.getsize(os.path.join(dp, f))
+                          for dp, _, fs in os.walk(path) for f in fs), dt))
+        return path
+
+    def finetune(exp, steps):
+        return finetune_asr.main([
+            "--model_name_or_path", d1, "--data_dir", data,
+            "--output_dir", exp, "--use_lora", "--freeze_decoder",
+            "--partial_decoder_unfreeze", "",
+            "--per_device_train_batch_size", str(FT_BATCH),
+            "--max_duration_in_seconds", "20", "--learning_rate",
+            str(TRAIN_LR), "--warmup_steps", "2", "--logging_steps", "1",
+            "--eval_steps", "1000", "--save_steps", str(FT_SAVE),
+            "--save_total_limit", "1", "--max_steps", str(steps)])
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    exp_a, exp_b = os.path.join(root, "exp_a"), os.path.join(root, "exp_b")
+    walls = []
+    try:
+        with mock.patch.object(loop_mod, "save_checkpoint", timed_save), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for exp, steps in ((exp_a, FT_STEPS), (exp_b, FT_SAVE),
+                               (exp_b, FT_STEPS)):
+                t0 = synced(torch)
+                trainer, counts = count(lambda: finetune(exp, steps))
+                walls.append(time.perf_counter() - t0)
+                kernels_ran(("conv0_fused", "flash_attention",
+                             "flash_attention_bwd_dq",
+                             "flash_attention_bwd_dkv",
+                             "flash_attention_bwd_dpb"), counts, "4")
+                losses = [round(m["loss"], 5) for m in trainer.metrics_log]
+                del trainer
+                torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+    last = f"checkpoint-{FT_STEPS}"
+    a = model_io.read_flat(os.path.join(exp_a, last))
+    b = model_io.read_flat(os.path.join(exp_b, last))
+    opt_a = model_io.read_flat(os.path.join(exp_a, last, "optimizer"))
+    opt_b = model_io.read_flat(os.path.join(exp_b, last, "optimizer"))
+    names = sorted(k[3:] for k in opt_a if k.startswith("mu."))
+    num = sum(float((a[n].float() - b[n].float()).pow(2).sum()) for n in names)
+    den = sum(float(a[n].float().pow(2).sum()) for n in names)
+    rel = math.sqrt(num / den)
+    n_equal = sum(torch.equal(a[n], b[n]) for n in names)
+    moments = all(torch.equal(opt_a[k], opt_b[k]) for k in opt_a)
+    frozen = all(torch.equal(a[k], b[k]) for k in a if k not in names)
+    nondet = sorted({str(w.message)[:100] for w in caught
+                     if "deterministic" in str(w.message)})
+    size, dt_ck = saves[-1]
+    say(f"model dirs 4: finetune_asr --use_lora --freeze_decoder B="
+        f"{FT_BATCH} on 8 x {AUDIO_S} s: {FT_STEPS} steps straight, "
+        f"{FT_SAVE} then resumed to {FT_STEPS}, walls "
+        f"{[round(w, 2) for w in walls]} s; last losses {losses}; a "
+        f"checkpoint {gbps(size, dt_ck)} (parameters, AdamW moments, trainer "
+        f"state); resumed vs straight over {len(names)} trainable tensors: "
+        f"rel_l2 {rel:.6g}, {n_equal} bit-equal, moments bit-equal "
+        f"{moments}, frozen tensors equal {frozen}; ops without a "
+        f"deterministic implementation {nondet} [{card}]")
+    exact = n_equal == len(names) and moments
+    if not frozen or not math.isfinite(rel) or \
+            (not exact and (not nondet or rel > RESUME_TOL)):
+        fail(f"model dirs 4: the resumed fine-tune differs from the straight "
+             f"one: rel_l2 {rel}, {len(names) - n_equal} tensors not "
+             f"bit-equal (gate: bit-equal, or rel_l2 {RESUME_TOL} where an op "
+             f"has no deterministic implementation)")
+    del a, b, opt_a, opt_b
+    shutil.rmtree(exp_a), shutil.rmtree(exp_b), shutil.rmtree(d1)
+
+    # 5. the inference CLI on a hybrid model directory
+    hcfg, hmodel, htr = full_width.build(SEED, "cuda", torch.bfloat16,
+                                         hybrid=True)
+    d5 = os.path.join(root, "hybrid")
+    model_io.save_model(d5, hcfg, hmodel)
+    htr.tokenizer.save(os.path.join(d5, "char_tokenizer.json"))
+    del hmodel, htr
+    torch.cuda.empty_cache()
+    outs, seqs = {}, {"w8a8": [], "ctc": [], "transcribe": []}
+
+    @contextlib.contextmanager
+    def recording(mod, name, into):
+        """`mod.name` (a generate) keeps the token ids it returns."""
+        real = getattr(mod, name)
+
+        def keep(*a, **kw):
+            out = real(*a, **kw)
+            into.append(out.sequences.cpu())
+            return out
+        with mock.patch.object(mod, name, keep):
+            yield
+
+    for tag, extra, names in (
+            ("w8a8", ["--quantize", "w8a8", "--kv_quant"],
+             ("conv0_fused", "flash_attention", "decode_attention_int8")),
+            ("ctc", ["--ctc_decoding"], ("conv0_fused", "flash_attention"))):
+        out = os.path.join(root, f"decode_{tag}")
+        t0 = synced(torch)
+        with recording(inference_asr, "generate", seqs[tag]):
+            _, counts = count(lambda: inference_asr.main([
+                "--model_name_or_path", d5, "--data_dir", data,
+                "--output_dir", out, "--batch_size", str(BATCH),
+                "--max_length", str(MAX_NEW), *extra]))
+        dt = time.perf_counter() - t0
+        kernels_ran(names, counts, "5")
+        files = sorted(os.listdir(out))
+        if not {"label", "decod", "wer"} <= set(files):
+            fail(f"model dirs 5: {tag} left {files}")
+        with open(os.path.join(out, "decod")) as f:
+            outs[tag] = dict(line.rstrip("\n").split(" ", 1)
+                             if " " in line else (line.strip(), "")
+                             for line in f)
+        with open(os.path.join(out, "wer")) as f:
+            report = f.read().strip()
+        say(f"model dirs 5: inference_asr {' '.join(extra)}: {dt:.2f} s for "
+            f"{len(outs[tag])} x {AUDIO_S} s, files {files}, {report}; "
+            f"launches {counts} [{card}]")
+    import mtasr_tpu_torch.api as api_mod
+    tr5 = Transcriber.from_pretrained(d5, quantize="w8a8", kv_quant=True)
+    with recording(api_mod, "generate", seqs["transcribe"]):
+        hyps = tr5.transcribe(paths, batch_size=BATCH,
+                              max_new_tokens=MAX_NEW)
+    cli = [outs["w8a8"][f"utt{i}"] for i in range(len(paths))]
+    # the texts of random weights are mostly ids outside the character
+    # tokenizer's, which decode to nothing: the token ids are compared too
+    a, b = torch.cat(seqs["w8a8"]), torch.cat(seqs["transcribe"])
+    same = cli == hyps and a.shape == b.shape and torch.equal(a, b)
+    say(f"model dirs 5: the CLI's w8a8 greedy hypotheses equal "
+        f"Transcriber.transcribe's on the same waveforms {same}: token ids "
+        f"{tuple(a.shape)}, {int((a == b).sum()) if a.shape == b.shape else 0}"
+        f" equal, {len(set(a.flatten().tolist()))} distinct; texts equal "
+        f"{cli == hyps} [{card}]")
+    if not same:
+        fail("model dirs 5: inference_asr and Transcriber.transcribe differ")
+    del tr5
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    say(f"model dirs: phase wall {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+
+
 def main() -> None:
     # the port stands alone: importing JAX or the JAX package now fails
     sys.modules["jax"] = None
@@ -1562,6 +1994,9 @@ def main() -> None:
         cfg_h, TRAIN_BATCH, AUDIO_S, SEED))
     hybrid_train_phase(torch, card, launches)
     ctc_serve_phase(torch, card, launches)
+
+    # -- model directories, training checkpoints and the CLIs -------------
+    model_dirs_phase(torch, card, launches)
 
     records = list(records.values())
     for r in records:

@@ -1,13 +1,16 @@
 """One-call batched transcription (counterpart of `mtasr_tpu/api.py`).
 
     from mtasr_tpu_torch.api import Transcriber
-    t = Transcriber(cfg, model, tokenizer)
+    t = Transcriber.from_pretrained("exp/model", quantize="w8a8",
+                                    kv_quant=True)
     texts = t.transcribe([wav_a, wav_b])     # greedy SOT decode
     streams = t.transcribe_ctc([wav_a])      # K per-speaker CTC transcripts
 
-int8 serving: quantize the model in place
-(`utils.quantize.quantize_for_serving(model, "w8a8")`) and give the
-Transcriber `gen=GenerationConfig(kv_quant=True)` for the int8 KV cache.
+`from_pretrained` loads a model directory (`utils/model_io.py`) onto the
+card unless the caller passes `device="cpu"`. A model built in the process
+is served by `Transcriber(cfg, model, tokenizer)`; for int8 serving,
+quantize it in place (`utils.quantize.quantize_for_serving(model,
+"w8a8")`) and give it `gen=GenerationConfig(kv_quant=True)`.
 
 Inputs are normalised and batched on the host (`data/`), decoded on the
 model's device, and come back in input order whatever the batching.
@@ -15,6 +18,7 @@ model's device, and come back in input order whatever the batching.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -25,11 +29,55 @@ from mtasr_tpu_torch.config import (
 )
 from mtasr_tpu_torch.data.audio import normalize_waveform, read_wav, resample
 from mtasr_tpu_torch.data.pipeline import PreparedExample, decode_batches
-from mtasr_tpu_torch.data.tokenizer import build_prompt_and_input
+from mtasr_tpu_torch.data.tokenizer import (
+    CharTokenizer, HFTokenizer, build_prompt_and_input,
+)
 from mtasr_tpu_torch.generate.engine import generate, generate_ctc
 from mtasr_tpu_torch.utils.wer import clean_decoded_text
 
 AudioInput = Union[str, np.ndarray]
+
+MESH_TODO = ("data and tensor parallelism are not ported yet (ROADMAP.md "
+             "queue 1, item 8: multi-GPU); use dp_size -1 or 1 and "
+             "tp_size 1")
+
+
+def resolve_tokenizer(model_dir: Optional[str],
+                      tokenizer_name: Optional[str],
+                      cfg: SpeechEncoderDecoderConfig):
+    """The CLIs' tokenizer: an HF tokenizer by name or path, else the
+    `char_tokenizer.json` saved beside the model, else a fresh
+    `CharTokenizer` whose special ids are written into `cfg`."""
+    if tokenizer_name:
+        return HFTokenizer(tokenizer_name)
+    saved = (os.path.join(model_dir, "char_tokenizer.json")
+             if model_dir else None)
+    if saved and os.path.exists(saved):
+        return CharTokenizer.load(saved)
+    tokenizer = CharTokenizer()
+    sp = tokenizer.add_special_tokens(instruct=cfg.instruct)
+    cfg.pad_token_id, cfg.sc_token_id = sp.pad_token_id, sp.sc_token_id
+    return tokenizer
+
+
+def load_for_serving(model_dir: str, quantize: str = "none",
+                     scope: str = "decoder", device="cuda"):
+    """(config, model) of a model directory, ready to serve on `device`
+    (bf16 on the card, as stored on the CPU): with `quantize` w8 / w8a8
+    through the streamed int8 load (its other tensors in bf16), or, for a
+    directory with a decoder LoRA, loaded, merged and quantized."""
+    from mtasr_tpu_torch.train.lora import merge_decoder_lora
+    from mtasr_tpu_torch.utils import model_io
+    from mtasr_tpu_torch.utils.quantize import quantize_for_serving
+    dtype = model_io.serving_dtype(device)
+    if quantize == "none":
+        return model_io.load_model(model_dir, device, dtype)
+    if not model_io.has_lora(model_dir):
+        return model_io.load_model_quantized(model_dir, quantize,
+                                             scope=scope, device=device)
+    cfg, model = model_io.load_model(model_dir, device, dtype)
+    merge_decoder_lora(model)
+    return cfg, quantize_for_serving(model, quantize, scope)
 
 
 class Transcriber:
@@ -48,12 +96,26 @@ class Transcriber:
                                    max_duration_in_seconds=1e9)
 
     @classmethod
-    def from_pretrained(cls, model_dir: str, **kw) -> "Transcriber":
-        raise NotImplementedError(
-            "loading a saved model directory into the port waits for the "
-            "checkpoint files (ROADMAP.md queue 1, item 8: serving "
-            "surface); build the model with utils.convert.load_flat or "
-            "init_random")
+    def from_pretrained(cls, model_dir: str, *,
+                        tokenizer_name: Optional[str] = None,
+                        quantize: str = "none", kv_quant: bool = False,
+                        dp_size: int = -1, tp_size: int = 1,
+                        instruct: Optional[bool] = None,
+                        gen: Optional[GenerationConfig] = None,
+                        device="cuda") -> "Transcriber":
+        """Load a model directory for serving (`api.py:40-110` of the JAX
+        package): quantize none / w8 / w8a8 (the decoder, streamed),
+        kv_quant for the int8 KV cache, `instruct` to override the saved
+        config's, the tokenizer by `resolve_tokenizer`. On `device`: the
+        card unless the caller asks for the CPU."""
+        if dp_size not in (-1, 1) or tp_size != 1:
+            raise NotImplementedError(MESH_TODO)
+        cfg, model = load_for_serving(model_dir, quantize, device=device)
+        if instruct is not None:
+            cfg.instruct = instruct
+        g = gen or GenerationConfig(do_sample=False, kv_quant=kv_quant)
+        return cls(cfg, model, resolve_tokenizer(model_dir, tokenizer_name,
+                                                 cfg), gen=g)
 
     # -- input prep ----------------------------------------------------------
     def _prompt_ids(self, prompt: str) -> List[int]:
@@ -104,7 +166,7 @@ class Transcriber:
         `<sc>`-separated transcript per input, in input order."""
         if num_beams > 1:
             raise NotImplementedError("beam search is not ported yet "
-                                      "(ROADMAP.md queue 1, item 13: "
+                                      "(ROADMAP.md queue 1, item 7: "
                                       "decoding variants)")
         device = next(self.model.parameters()).device
         results: Dict[str, str] = {}

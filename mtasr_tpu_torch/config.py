@@ -2,24 +2,27 @@
 
 Field names, defaults and the builders follow the JAX package's, which
 follow HF's `WavLMConfig` / `LlamaConfig`, so a config moves between the
-two by name (`from_fields`). Only what the ported slices read is here
-(serving; attention-mode and hybrid SOT+CTC training with `TrainingConfig`,
-the separator and the CTC heads), plus the mode switches the port refuses
-(`ctc_bridge`, `talker_ctc_refine`, ...), so that a config asking for an
-unported mode is refused and not ignored. The JAX
-package's backend switches (`attention_impl`, `conv0_impl`,
-`decode_attn_impl`, `scan_layers`, ...) have no counterpart: the port
-chooses by the tensor's device.
+two by name (`from_fields`) and through the same `config.json`
+(`to_json` / `from_json`): every field of the JAX dataclasses is here with
+its default. The mode switches of parts the port does not run
+(`ctc_bridge`, `talker_ctc_refine`, the cross-attention adapters) are
+refused by `models/speech_encoder_decoder.py::check_supported`, so that a
+config asking for one is refused and not ignored. The JAX package's
+backend selectors (`attention_impl`, `conv0_impl`, `conv_impl`,
+`gelu_impl`, `decode_attn_impl`, `scan_layers`) are carried for the round
+trip and select nothing: the port chooses by the tensor's device.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
 @dataclass(eq=False)
 class WavLMConfig:
+    vocab_size: int = 32
     hidden_size: int = 768
     num_hidden_layers: int = 12
     num_attention_heads: int = 12
@@ -63,6 +66,12 @@ class WavLMConfig:
     pos_conv_weight_norm: bool = False
     # recompute each encoder layer in backward (torch.utils.checkpoint)
     remat: bool = False
+    # the JAX package's backend selectors (no counterpart here)
+    attention_impl: str = "auto"
+    scan_layers: bool = False
+    conv_impl: str = "xla"
+    gelu_impl: str = "auto"
+    conv0_impl: str = "auto"
 
     @property
     def out_hidden(self) -> int:
@@ -88,6 +97,10 @@ class WavLMConfig:
         return length
 
 
+def wavlm_base_config(**kw) -> WavLMConfig:
+    return WavLMConfig(**kw)
+
+
 def wavlm_large_config(**kw) -> WavLMConfig:
     """WavLM-Large geometry."""
     defaults = dict(
@@ -109,17 +122,23 @@ class LlamaConfig:
     num_key_value_heads: int = 8
     head_dim: Optional[int] = None  # defaults to hidden_size // heads
     hidden_act: str = "silu"
+    max_position_embeddings: int = 131072
     rms_norm_eps: float = 1e-5
     rope_theta: float = 500000.0
     # llama3-style rope scaling: {"rope_type": "llama3", "factor": 32.0, ...}
     rope_scaling: Optional[dict] = None
     attention_bias: bool = False
+    attention_dropout: float = 0.0     # read nowhere, as in the JAX package
     mlp_bias: bool = False
     tie_word_embeddings: bool = False
     bos_token_id: int = 128000
     eos_token_id: int = 128001
+    pad_token_id: Optional[int] = None
     # recompute each decoder layer in backward (torch.utils.checkpoint)
     remat: bool = False
+    # the JAX package's backend selectors (no counterpart here)
+    scan_layers: bool = False
+    decode_attn_impl: str = "pallas"
 
     @property
     def head_dim_(self) -> int:
@@ -135,6 +154,33 @@ def llama_1b_config(**kw) -> LlamaConfig:
                       "high_freq_factor": 4.0, "low_freq_factor": 1.0,
                       "original_max_position_embeddings": 8192},
         tie_word_embeddings=True,
+    )
+    defaults.update(kw)
+    return LlamaConfig(**defaults)
+
+
+def llama_3b_config(**kw) -> LlamaConfig:
+    """LLaMA-3.2-3B geometry."""
+    defaults = dict(
+        hidden_size=3072, intermediate_size=8192, num_hidden_layers=28,
+        num_attention_heads=24, num_key_value_heads=8, head_dim=128,
+        rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                      "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                      "original_max_position_embeddings": 8192},
+        tie_word_embeddings=True,
+    )
+    defaults.update(kw)
+    return LlamaConfig(**defaults)
+
+
+def llama_8b_config(**kw) -> LlamaConfig:
+    """LLaMA-3.1-8B geometry."""
+    defaults = dict(
+        hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+        rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                      "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                      "original_max_position_embeddings": 8192},
     )
     defaults.update(kw)
     return LlamaConfig(**defaults)
@@ -170,10 +216,23 @@ class SpeechEncoderDecoderConfig:
     separator_dropout: float = 0.2
     talker_ctc_refine: bool = False
     ctc_bridge: bool = False
-    decoder_cross_attention: bool = False
+    ctc_bridge_type: str = "raw"       # raw | softmax | ctcprompt
     ctc_alpha: float = 0.7
+    # the cross-attention adapter family (refused when switched on)
+    decoder_cross_attention: bool = False
+    decoder_cross_attention_type: str = "tiny"
+    decoder_cross_attention_feature: str = "raw"
+    decoder_cross_attention_dynamic: bool = False
+    decoder_cross_attention_dynamic_threshold: float = 0.0
+    decoder_cross_attention_dynamic_loss: bool = False
+    decoder_cross_attention_dynamic_ratio: float = 0.8
+    cross_attn_dim: int = 512
+    r_max: int = 16
+    lora_alpha: int = 16
     # dropout on the decoder LoRA branch's input, in training only
     lora_dropout: float = 0.1
+    # the generation length a created model directory records
+    max_length: int = 200
 
     def validate(self) -> None:
         """Reject a config no model can have (unported modes are refused
@@ -182,6 +241,16 @@ class SpeechEncoderDecoderConfig:
         if self.train_mode not in ("ctc", "attention", "hybrid"):
             err.append(f"train_mode={self.train_mode!r} not in "
                        "ctc/attention/hybrid")
+        if self.ctc_bridge_type not in ("raw", "softmax", "ctcprompt"):
+            err.append(f"ctc_bridge_type={self.ctc_bridge_type!r} invalid")
+        if self.decoder_cross_attention_type not in (
+                "tiny", "gatetiny", "ctcaware", "adapgatetiny"):
+            err.append(f"decoder_cross_attention_type="
+                       f"{self.decoder_cross_attention_type!r} invalid")
+        if self.decoder_cross_attention_feature not in (
+                "raw", "mix", "sep", "ctctoken"):
+            err.append(f"decoder_cross_attention_feature="
+                       f"{self.decoder_cross_attention_feature!r} invalid")
         needs_ctc = []
         if self.train_mode in ("ctc", "hybrid"):
             needs_ctc.append(f"train_mode={self.train_mode}")
@@ -189,6 +258,14 @@ class SpeechEncoderDecoderConfig:
             needs_ctc.append("ctc_bridge")
         if self.talker_ctc_refine:
             needs_ctc.append("talker_ctc_refine")
+        if (self.decoder_cross_attention
+                and self.decoder_cross_attention_feature in ("sep",
+                                                             "ctctoken")):
+            needs_ctc.append("decoder_cross_attention_feature="
+                             + self.decoder_cross_attention_feature)
+        if (self.decoder_cross_attention
+                and self.decoder_cross_attention_type == "ctcaware"):
+            needs_ctc.append("decoder_cross_attention_type=ctcaware")
         if needs_ctc and not self.talker_ctc:
             err.append(f"{', '.join(needs_ctc)} require(s) talker_ctc=True "
                        "(separator + serialized CTC heads)")
@@ -217,6 +294,18 @@ class SpeechEncoderDecoderConfig:
     def ctc_odim(self) -> int:
         return self.decoder.vocab_size + 1
 
+    def to_json(self) -> str:
+        """The JAX package's `config.json` text."""
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, s: str) -> "SpeechEncoderDecoderConfig":
+        d = json.loads(s)
+        enc = WavLMConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in d.pop("encoder").items()})
+        dec = LlamaConfig(**d.pop("decoder"))
+        return cls(encoder=enc, decoder=dec, **d)
+
 
 @dataclass(frozen=True)
 class GenerationConfig:
@@ -227,20 +316,28 @@ class GenerationConfig:
     temperature: float = 1.0
     top_k: int = 0
     top_p: float = 1.0
+    use_cache: bool = True         # False (no KV cache) is refused
     # int8 KV cache (per-(row, slot, head) scales)
     kv_quant: bool = False
-    # not ported yet; a config that asks for it is refused
-    speculative: Optional[str] = None
     # encode the batch this many rows at a time (None: all at once)
     encode_chunk: Optional[int] = None
+    # not ported yet; a config that asks for it is refused
+    speculative: Optional[str] = None
+    spec_k: int = 4
+    spec_cache_factor: float = 2.0
 
 
 @dataclass
 class DataConfig:
+    dataset_name: Optional[str] = None
+    audio_column_name: str = "audio"
+    text_column_name: str = "text"
     max_duration_in_seconds: float = 20.0
     min_duration_in_seconds: float = 0.0
     do_lower_case: bool = True
     sampling_rate: int = 16000
+    train_split_name: str = "train"
+    eval_split_name: str = "test"
     # audio length buckets: a batch is padded to its bucket's length
     bucket_boundaries_seconds: Tuple[float, ...] = (5.0, 10.0, 15.0, 20.0)
     max_label_length: int = 256

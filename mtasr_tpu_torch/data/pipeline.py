@@ -6,6 +6,12 @@ decode splices the speech at one prompt position for the whole batch.
 
 Serving: `decode_batches` gives every input once, bucket by bucket, in
 input order within a bucket; the caller puts the results back in order.
+From a Kaldi directory (`data/audio.py::load_kaldi_dir`), `prepare_examples`
+tokenizes each utterance and filters it by duration (min < n < max); a
+lazy example reads only the WAV header and loads its samples when it is
+collated, so memory follows the batch, not the dataset. It can run in a
+worker pool and keep a JSONL cache stamped with the settings that made
+it.
 Training: `collate(..., training=True)` adds the label surgery
 (`data/labels.py`: decoder_input_ids, ce_labels, the splice index) and the
 SpecAugment time mask (`data/specaugment.py`), and `batches_from_examples`
@@ -14,26 +20,157 @@ does, so that the two give the same batches.
 """
 from __future__ import annotations
 
+import json
+import logging
+import os
+import wave
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from mtasr_tpu_torch.config import DataConfig, SpeechEncoderDecoderConfig
+from mtasr_tpu_torch.data.audio import (
+    Utterance, normalize_waveform, read_wav, resample,
+)
 from mtasr_tpu_torch.data.labels import build_training_arrays
 from mtasr_tpu_torch.data.specaugment import compute_mask_indices
+from mtasr_tpu_torch.data.tokenizer import build_prompt_and_input
 
 
 @dataclass
 class PreparedExample:
     utt_id: str
-    input_values: np.ndarray      # normalised waveform
+    input_values: Optional[np.ndarray]  # normalised waveform; None: lazy
     prompt_ids: List[int]         # instruct prompt ids (no BOS), may be []
     labels: List[int] = field(default_factory=list)  # target, no BOS / EOS
+    n_samples: int = -1           # at the model's rate (-1: the waveform's)
+    wav_path: Optional[str] = None  # where a lazy example loads from
 
-    @property
-    def n_samples(self) -> int:
-        return len(self.input_values)
+    def __post_init__(self):
+        if self.n_samples < 0:
+            self.n_samples = len(self.input_values)
+
+    def waveform(self, dc: DataConfig) -> np.ndarray:
+        """The normalised waveform, read from disk for a lazy example."""
+        if self.input_values is not None:
+            return self.input_values
+        wav_data, sr = read_wav(self.wav_path)
+        return normalize_waveform(resample(wav_data, sr, dc.sampling_rate))
+
+
+def _wav_duration_samples(path: str, target_sr: int) -> int:
+    """Samples at `target_sr` from the WAV header alone (scipy
+    `resample_poly`'s output length, ceil(n * up / down))."""
+    with wave.open(path, "rb") as w:
+        n, sr = w.getnframes(), w.getframerate()
+    if sr == target_sr:
+        return n
+    from math import gcd
+    g = gcd(sr, target_sr)
+    return -(-n * (target_sr // g) // (sr // g))
+
+
+def prepare_example(utt: Utterance, tokenizer, dc: DataConfig,
+                    instruct: bool = False,
+                    lazy: bool = False) -> Optional[PreparedExample]:
+    """Tokenize one utterance (labels without BOS; in instruct mode the
+    prompt template, labels = prompt + response) and read or, `lazy`, only
+    measure its waveform; None if its duration is out of bounds."""
+    if lazy:
+        n, wav_norm = _wav_duration_samples(utt.wav_path,
+                                            dc.sampling_rate), None
+    else:
+        wav_data, sr = read_wav(utt.wav_path)
+        wav_data = resample(wav_data, sr, dc.sampling_rate)
+        n, wav_norm = len(wav_data), normalize_waveform(wav_data)
+    if not (dc.min_duration_in_seconds * dc.sampling_rate < n
+            < dc.max_duration_in_seconds * dc.sampling_rate):
+        return None
+    text = utt.text.lower() if dc.do_lower_case else utt.text
+    if instruct:
+        prompt = utt.prompt.lower() if dc.do_lower_case else utt.prompt
+        prompt_str, input_str = build_prompt_and_input(prompt, text)
+        labels = tokenizer.encode(prompt_str + input_str, add_bos=False)
+        prompt_ids = tokenizer.encode(prompt_str, add_bos=False)
+    else:
+        labels, prompt_ids = tokenizer.encode(text, add_bos=False), []
+    return PreparedExample(utt.utt_id, wav_norm, prompt_ids, labels, n,
+                           wav_path=utt.wav_path if lazy else None)
+
+
+# the worker pool's state, set in each worker by the pool's initializer
+_PREP_CTX: dict = {}
+
+
+def _prep_init(tokenizer, dc, instruct, lazy):
+    _PREP_CTX.update(tokenizer=tokenizer, dc=dc, instruct=instruct,
+                     lazy=lazy)
+
+
+def _prep_worker(utt):
+    return prepare_example(utt, _PREP_CTX["tokenizer"], _PREP_CTX["dc"],
+                           _PREP_CTX["instruct"], lazy=_PREP_CTX["lazy"])
+
+
+def _cache_fingerprint(tokenizer, dc: DataConfig, instruct: bool) -> dict:
+    """The settings that change prepared labels and durations: a cache
+    written under others is rebuilt."""
+    tok_id = (getattr(tokenizer, "name_or_path", None)
+              or type(tokenizer).__name__)
+    return {
+        "tokenizer": str(tok_id),
+        "vocab_size": int(getattr(tokenizer, "vocab_size", 0) or 0),
+        "sampling_rate": dc.sampling_rate,
+        "min_duration_in_seconds": dc.min_duration_in_seconds,
+        "max_duration_in_seconds": dc.max_duration_in_seconds,
+        "do_lower_case": dc.do_lower_case,
+        "instruct": bool(instruct),
+    }
+
+
+def prepare_examples(
+    utts: Sequence[Utterance], tokenizer, dc: DataConfig,
+    instruct: bool = False, *, lazy: bool = True, num_proc: int = 1,
+    cache_path: Optional[str] = None,
+) -> List[PreparedExample]:
+    """`prepare_example` over `utts`, in `num_proc` spawned workers when
+    more than one, dropping the out-of-bounds ones. With `cache_path` (lazy
+    only), the examples are read from, or written to, a JSONL cache whose
+    first line is the settings' fingerprint."""
+    fp = _cache_fingerprint(tokenizer, dc, instruct)
+    if cache_path and os.path.exists(cache_path):
+        with open(cache_path) as f:
+            if json.loads(f.readline() or "{}").get("__fingerprint__") == fp:
+                return [PreparedExample(
+                    d["utt_id"], None, d["prompt_ids"], d["labels"],
+                    d["n_samples"], wav_path=d["wav_path"])
+                    for d in map(json.loads, f)]
+        logging.getLogger("mtasr_tpu_torch.data").warning(
+            "preprocessing cache %s was written under a different "
+            "tokenizer/data config; rebuilding", cache_path)
+    if num_proc > 1:
+        import multiprocessing as mp
+        with mp.get_context("spawn").Pool(
+                num_proc, initializer=_prep_init,
+                initargs=(tokenizer, dc, instruct, lazy)) as pool:
+            prepared = pool.map(_prep_worker, list(utts), chunksize=64)
+    else:
+        prepared = [prepare_example(u, tokenizer, dc, instruct, lazy=lazy)
+                    for u in utts]
+    out = [e for e in prepared if e is not None]
+    if cache_path and lazy:
+        tmp = cache_path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(json.dumps({"__fingerprint__": fp}) + "\n")
+            for e in out:
+                f.write(json.dumps({
+                    "utt_id": e.utt_id, "labels": list(map(int, e.labels)),
+                    "prompt_ids": list(map(int, e.prompt_ids)),
+                    "n_samples": int(e.n_samples),
+                    "wav_path": e.wav_path}) + "\n")
+        os.replace(tmp, cache_path)
+    return out
 
 
 @dataclass
@@ -62,8 +199,9 @@ def collate(examples: Sequence[PreparedExample],
     wav = np.zeros((B, S), np.float32)
     amask = np.zeros((B, S), np.int32)
     for i, e in enumerate(examples):
-        n = min(e.n_samples, S)
-        wav[i, :n] = e.input_values[:n]
+        w = e.waveform(dc)            # a lazy example loads from disk here
+        n = min(len(w), S)
+        wav[i, :n] = w[:n]
         amask[i, :n] = 1
     arrays = {"input_values": wav, "audio_mask": amask}
     splice_index = 1
@@ -122,13 +260,15 @@ def batches_from_examples(
     examples: List[PreparedExample], cfg: SpeechEncoderDecoderConfig,
     dc: DataConfig, batch_size: int, *, training: bool = True,
     shuffle: bool = True, seed: int = 0, drop_last: bool = True,
-    pad_partial: bool = False,
+    pad_partial: bool = False, shard_index: int = 0, num_shards: int = 1,
 ) -> Iterator[Batch]:
     """Length-bucketed training batches, grouped by (bucket, prompt
     length), shuffled within and across groups from `seed`; labels padded
     to `dc.max_label_length`. `pad_partial` tops a short last batch up by
-    cycling its group (DistributedSampler's drop_last=False)."""
+    cycling its group (DistributedSampler's drop_last=False). With
+    `num_shards`, the examples `shard_index::num_shards` only."""
     rng = np.random.default_rng(seed)
+    examples = examples[shard_index::num_shards]
     by_bucket: Dict[tuple, List[PreparedExample]] = {}
     for e in examples:
         key = (bucket_length(e.n_samples, dc), len(e.prompt_ids))

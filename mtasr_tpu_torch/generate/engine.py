@@ -90,22 +90,35 @@ def encode_maybe_chunked(model: SpeechEncoderDecoderModel,
         torch.cat([e.encoder_attention_mask for e in encs], dim=0))
 
 
-def _sample_token(logits: torch.Tensor, gen: GenerationConfig,
-                  generator: Optional[torch.Generator]) -> torch.Tensor:
-    """logits [B, V] -> token [B]."""
-    if not gen.do_sample:
-        return logits.argmax(dim=-1)
-    logits = logits.float() / max(gen.temperature, 1e-6)
+def filter_logits(logits: torch.Tensor,
+                  gen: GenerationConfig) -> torch.Tensor:
+    """Temperature, then top-k and top-p: the tokens filtered out get
+    -1e30. Runs in the logits' own dtype (bf16 when serving), as the JAX
+    engine's filter does, with its softmax in the same steps (exp, sum,
+    divide, each rounded to the dtype). When the cumulative probability
+    never reaches `top_p` (it can stall below it in the dtype's rounding)
+    every token is kept."""
+    logits = logits / max(gen.temperature, 1e-6)
     if gen.top_k and gen.top_k > 0:
         kth = torch.topk(logits, gen.top_k, dim=-1).values[:, -1:]
         logits = logits.masked_fill(logits < kth, -1e30)
     if gen.top_p < 1.0:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-        cum = torch.softmax(sorted_logits, dim=-1).cumsum(-1)
+        e = torch.exp(sorted_logits - sorted_logits[:, :1])
+        cum = (e / e.sum(-1, keepdim=True)).cumsum(-1)
         cutoff = (cum < gen.top_p).sum(-1, keepdim=True)
-        kth = sorted_logits.gather(-1, cutoff)
+        kth = sorted_logits.gather(-1, cutoff.clamp_max(logits.shape[-1] - 1))
         logits = logits.masked_fill(logits < kth, -1e30)
-    probs = torch.softmax(logits, dim=-1)
+    return logits
+
+
+def _sample_token(logits: torch.Tensor, gen: GenerationConfig,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """logits [B, V] -> token [B]: argmax, or a draw from the filtered
+    distribution."""
+    if not gen.do_sample:
+        return logits.argmax(dim=-1)
+    probs = torch.softmax(filter_logits(logits, gen).float(), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
@@ -201,11 +214,15 @@ def _decode(model: SpeechEncoderDecoderModel,
 def _check_gen(gen: GenerationConfig) -> None:
     if gen.num_beams > 1:
         raise NotImplementedError("beam search is not ported yet (ROADMAP.md "
-                                  "queue 1, item 13: decoding variants)")
+                                  "queue 1, item 7: decoding variants)")
     if gen.speculative:
         raise NotImplementedError("speculative decoding is not ported yet "
-                                  "(ROADMAP.md queue 1, item 13: decoding "
+                                  "(ROADMAP.md queue 1, item 7: decoding "
                                   "variants)")
+    if not gen.use_cache:
+        raise NotImplementedError("decoding without the KV cache is not "
+                                  "ported (ROADMAP.md queue 1, item 7: "
+                                  "decoding variants)")
 
 
 def generate(model: SpeechEncoderDecoderModel,

@@ -36,7 +36,7 @@ def check_supported(cfg: SpeechEncoderDecoderConfig) -> None:
     if cfg.ctc_bridge or cfg.talker_ctc_refine or cfg.decoder_cross_attention:
         raise NotImplementedError(
             "CTC bridges, refiners and cross-attention adapters are not "
-            "ported yet (ROADMAP.md queue 1, item 12: bridge and adapter "
+            "ported yet (ROADMAP.md queue 1, item 6: bridge and adapter "
             "family)")
 
 

@@ -5,8 +5,13 @@ steps over epochs of batches, logging to `metrics.jsonl`, periodic eval
 As in the JAX trainer, every step's randomness is a function of (seed,
 step): its dropout comes from a fresh `torch.Generator` seeded from both,
 and the position in the data stream (epoch, batch in epoch) is kept in
-the state. Checkpointing (`save`, `maybe_resume`, best-model retention) is
-ROADMAP.md queue 1, item 11c: those calls raise, and `train` saves nothing.
+the state. `save` writes `output_dir/checkpoint-<step>` (`train/checkpoint.py`:
+the parameters, AdamW's state, the trainer state) every `save_steps` and at
+the end; `maybe_resume` restores the newest, and `train` then re-enters the
+interrupted epoch and skips the batches it had consumed, so a resumed run
+sees the data an uninterrupted one does. With eval batches, the best
+model by `metric_for_best_model` is kept in `output_dir/best/`, outside the
+rotation, and loaded at the end (`load_best_model_at_end`).
 """
 from __future__ import annotations
 
@@ -26,6 +31,9 @@ from mtasr_tpu_torch.config import (
 )
 from mtasr_tpu_torch.data.pipeline import Batch
 from mtasr_tpu_torch.generate.engine import generate
+from mtasr_tpu_torch.train.checkpoint import (
+    last_checkpoint, restore_checkpoint, save_checkpoint,
+)
 from mtasr_tpu_torch.train.freeze import (
     apply_trainable_mask, freeze_summary, trainable_mask,
 )
@@ -34,10 +42,6 @@ from mtasr_tpu_torch.train.train_step import make_eval_step, make_train_step
 from mtasr_tpu_torch.utils.wer import Calculator, clean_decoded_text
 
 logger = logging.getLogger("mtasr_tpu_torch.trainer")
-
-CHECKPOINT_TODO = ("checkpointing (save / resume / best-model retention) is "
-                   "not ported yet (ROADMAP.md queue 1, item 11c: "
-                   "checkpointing and the fine-tuning CLI)")
 
 
 @dataclass
@@ -80,6 +84,8 @@ class Trainer:
         self._train_steps: Dict[int, Callable] = {}
         self._eval_steps: Dict[int, Callable] = {}
         self.metrics_log: List[dict] = []
+        self.best_metric: Optional[float] = None
+        self.best_step: Optional[int] = None
 
     def _train_step(self, splice_index: int) -> Callable:
         if splice_index not in self._train_steps:
@@ -107,11 +113,71 @@ class Trainer:
         except OSError:
             pass
 
+    # -- checkpointing ------------------------------------------------------
     def save(self, output_dir: Optional[str] = None) -> str:
-        raise NotImplementedError(CHECKPOINT_TODO)
+        """Write `checkpoint-<step>` (parameters, AdamW state, trainer
+        state) under `output_dir` (default `tc.output_dir`), keeping the
+        newest `save_total_limit`."""
+        st = self.state
+        return save_checkpoint(
+            output_dir or self.tc.output_dir, st.step, self.cfg, self.model,
+            self.optimizer.state_dict(),
+            extra={"step": st.step, "epoch": st.epoch,
+                   "batch_in_epoch": st.batch_in_epoch,
+                   "best_metric": self.best_metric,
+                   "best_step": self.best_step},
+            save_total_limit=self.tc.save_total_limit)
 
     def maybe_resume(self) -> bool:
-        raise NotImplementedError(CHECKPOINT_TODO)
+        """Restore the newest checkpoint of `tc.output_dir`, if any."""
+        ckpt = last_checkpoint(self.tc.output_dir)
+        if ckpt is None:
+            return False
+        st = restore_checkpoint(ckpt, self.model, self.optimizer)
+        self.state = TrainState(st["step"], st["epoch"],
+                                st["batch_in_epoch"])
+        self.best_metric = st.get("best_metric")
+        self.best_step = st.get("best_step")
+        logger.info("resumed from %s at step %d (epoch %d, batch %d)", ckpt,
+                    self.state.step, self.state.epoch,
+                    self.state.batch_in_epoch)
+        return True
+
+    def _best_dir(self) -> str:
+        return os.path.join(self.tc.output_dir, "best")
+
+    def _maybe_update_best(self, eval_metrics: Dict[str, float]) -> None:
+        key = self.tc.metric_for_best_model
+        if key not in eval_metrics and not key.startswith("eval_"):
+            key = f"eval_{key}"          # HF's metric-name normalisation
+        if key not in eval_metrics:
+            return
+        value = float(eval_metrics[key])
+        better = (self.best_metric is None
+                  or (value > self.best_metric if self.tc.greater_is_better
+                      else value < self.best_metric))
+        if not better:
+            return
+        self.best_metric, self.best_step = value, self.state.step
+        # outside the checkpoint-N rotation: retention never evicts it
+        save_checkpoint(self._best_dir(), self.state.step, self.cfg,
+                        self.model, extra={"step": self.state.step,
+                                           "metric": value},
+                        save_total_limit=1)
+        logger.info("new best %s=%.4f at step %d", key, value,
+                    self.state.step)
+
+    def _maybe_load_best(self) -> None:
+        """The best parameters back into the model (the optimizer keeps
+        the last step's moments, as the JAX trainer's does)."""
+        if not self.tc.load_best_model_at_end or self.best_step is None:
+            return
+        ckpt = last_checkpoint(self._best_dir())
+        if ckpt is not None:
+            restore_checkpoint(ckpt, self.model)
+            logger.info("loaded best model (step %d, %s=%.4f)",
+                        self.best_step, self.tc.metric_for_best_model,
+                        self.best_metric)
 
     def train(self, train_batches: Callable[..., Iterable[Batch]],
               eval_batches: Optional[Callable[[], Iterable[Batch]]] = None,
@@ -129,14 +195,20 @@ class Trainer:
             takes_epoch = False
         self.model.train()
         t_start, samples = time.perf_counter(), 0
-        epoch = self.state.epoch
+        # a mid-epoch resume re-enters the interrupted epoch and skips the
+        # batches it consumed; a clean epoch boundary starts the next one
+        skip = self.state.batch_in_epoch
+        epoch = self.state.epoch - 1 if skip > 0 else self.state.epoch
         while self.state.step < max_steps:
             epoch += 1
-            n_batches = 0
+            n_batches, completed_epoch = 0, True
             it = train_batches(epoch) if takes_epoch else train_batches()
             for bi, batch in enumerate(it):
                 n_batches += 1
+                if bi < skip:
+                    continue          # consumed before the resume point
                 if self.state.step >= max_steps:
+                    completed_epoch = False
                     break
                 gen = step_generator(self.tc.seed, self.state.step,
                                      self.device)
@@ -154,16 +226,25 @@ class Trainer:
                     self.metrics_log.append(m)
                     self._write_metrics(m)
                     logger.info("step %d: %s", self.state.step, m)
+                if self.state.step % self.tc.save_steps == 0:
+                    self.save()
                 if (eval_batches is not None
                         and self.state.step % self.tc.eval_steps == 0):
                     em = self.evaluate(eval_batches(), eval_refs)
                     logger.info("eval @%d: %s", self.state.step, em)
+                    self._maybe_update_best(em)
                     self.model.train()
+            skip = 0
+            if completed_epoch:
+                # epoch boundary: a resume from here starts the next epoch
+                self.state = TrainState(self.state.step, epoch, 0)
             if n_batches == 0:
                 logger.warning("no batches produced this epoch; stopping")
                 break
             if epoch >= self.tc.num_train_epochs and self.tc.max_steps <= 0:
                 break
+        self.save()
+        self._maybe_load_best()
         return self.state
 
     def evaluate(self, batches: Iterable[Batch],

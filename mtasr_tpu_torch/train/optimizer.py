@@ -18,10 +18,15 @@ trainable parameters, in MultiSteps for accumulation). What
 
 A trainable parameter that got no gradient is updated with a zero one, as
 its zero cotangent is in JAX.
+
+`state_dict` / `load_state_dict` carry what a resume needs: the update
+count (the schedule's position and the bias correction), the micro-batch
+position, both moments and the accumulated gradient of every trainable
+tensor, by parameter name.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -69,6 +74,7 @@ class AdamW:
                                                tc.warmup_steps, total)
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
+        self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.decay = [not is_no_decay(n) for n, _ in named]
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -77,6 +83,34 @@ class AdamW:
         self.mini_step = 0      # micro-batches accumulated toward the next
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if tc.gradient_accumulation_steps > 1 else None)
+
+    def state_dict(self) -> Dict[str, object]:
+        """{"count", "mini_step", "mu", "nu"[, "acc"]}: the moments (and the
+        accumulated gradient) as {parameter name: tensor}."""
+        state = {"count": self.count, "mini_step": self.mini_step,
+                 "mu": dict(zip(self.names, self.mu)),
+                 "nu": dict(zip(self.names, self.nu))}
+        if self.acc is not None:
+            state["acc"] = dict(zip(self.names, self.acc))
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Restore `state_dict()`'s content into this optimizer's tensors
+        (same trainable names, same shapes)."""
+        slots = [("mu", self.mu), ("nu", self.nu)]
+        if self.acc is not None:
+            slots.append(("acc", self.acc))
+        for key, mine in slots:
+            theirs = state[key]
+            if set(theirs) != set(self.names):
+                raise KeyError(f"optimizer state {key}: names differ from "
+                               "the trainable parameters: "
+                               f"{sorted(set(theirs) ^ set(self.names))[:8]}")
+            for name, t in zip(self.names, mine):
+                t.copy_(theirs[name])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
 
     def zero_grad(self) -> None:
         for p in self.params:

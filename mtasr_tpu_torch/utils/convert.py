@@ -16,6 +16,12 @@ well: each such slot of the model becomes a `QuantLinear` first. A
 `talker_ctc` tree's `separator.*` and `serialized_ctc.{k}.ctc_lo.*` keys
 are the port's parameter names as they are.
 
+The values may also be torch tensors (`utils/model_io.py` hands over the
+memory-mapped tensors of a model directory, already on their device).
+A model built on the meta device is filled by assignment: it takes the
+given tensors as they are, device and dtype, and no parameter is
+allocated twice.
+
 `init_random` builds a model at full width with random weights from a
 `torch.Generator`, straight on the target device, for runs that have no
 checkpoint.
@@ -35,27 +41,16 @@ from mtasr_tpu_torch.models.speech_encoder_decoder import (
 )
 from mtasr_tpu_torch.models.wavlm import WavLM, pos_conv_module
 from mtasr_tpu_torch.train.lora import DecoderLoRA, LoRAPair
+from mtasr_tpu_torch.utils.safetensors_io import convert_state_dict
 
 
-def _to_tensor(a: np.ndarray) -> torch.Tensor:
+def _to_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.array(a, copy=True, order="C")   # writable, owned by torch
     if a.dtype.name == "bfloat16":   # ml_dtypes' bf16, as JAX hands it out
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
-
-
-def _fuse_weight_norm(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """weight = g * v / ||v||, the norm over (out, in) per kernel position
-    (torch weight_norm with dim=2), computed in float32."""
-    out = dict(flat)
-    for key in [k for k in flat if k.endswith(".weight_g")]:
-        base = key[:-len(".weight_g")]
-        g = out.pop(key).astype(np.float32)
-        v_raw = out.pop(base + ".weight_v")
-        v = v_raw.astype(np.float32)
-        norm = np.sqrt((v * v).sum(axis=(0, 1), keepdims=True))
-        out[base + ".weight"] = (g * v / norm).astype(v_raw.dtype)
-    return out
 
 
 _QUANT_KEYS = {".weight_q8a8": "w8a8", ".weight_q8": "w8"}
@@ -109,8 +104,8 @@ def _lora_slot(model: torch.nn.Module, flat: Dict[str, np.ndarray]) -> None:
     keys = [k for k in flat if k.startswith("decoder_lora.")]
     if not keys:
         return
-    r = float(np.asarray(flat.pop("decoder_lora.__meta__.r")))
-    alpha = float(np.asarray(flat.pop("decoder_lora.__meta__.alpha")))
+    r = float(flat.pop("decoder_lora.__meta__.r"))
+    alpha = float(flat.pop("decoder_lora.__meta__.alpha"))
     device = next(model.parameters()).device
     pairs: Dict[str, Dict[str, LoRAPair]] = {}
     for key in keys:
@@ -123,22 +118,21 @@ def _lora_slot(model: torch.nn.Module, flat: Dict[str, np.ndarray]) -> None:
     model.decoder_lora = DecoderLoRA(pairs, r, alpha)
 
 
-def load_flat(model: torch.nn.Module, flat: Mapping[str, np.ndarray], *,
+def load_flat(model: torch.nn.Module, flat: Mapping[str, object], *,
               training: bool = False) -> None:
-    """Load flat numpy parameters into `model` (strict: every key must
-    match a parameter or buffer, and every one must be given). With
-    `training`, a weight-normed positional conv keeps its (g, v)."""
-    flat = dict(flat)
-    if not _pos_conv_slots(model, flat, training):
-        flat = _fuse_weight_norm(flat)
+    """Load flat parameters (numpy arrays or torch tensors) into `model`
+    (strict: every key must match a parameter or buffer, and every one
+    must be given). With `training`, a weight-normed positional conv keeps
+    its (g, v). A model on the meta device takes the tensors as given."""
+    flat = {k: _to_tensor(v) for k, v in flat.items()}
+    keep = _pos_conv_slots(model, flat, training)
+    # weight norm fused in float32 (kept as (g, v) for training), HF's
+    # [1, H, 1, 1] gru_rel_pos_const flattened
+    flat = convert_state_dict(flat, fuse_weight_norm=not keep)
     _lora_slot(model, flat)
     _quantized_slots(model, flat)
-    state = {}
-    for key, value in flat.items():
-        if key.endswith("gru_rel_pos_const"):
-            value = np.reshape(value, (-1,))
-        state[key] = _to_tensor(value)
-    model.load_state_dict(state, strict=True)
+    meta = next(model.parameters()).is_meta
+    model.load_state_dict(flat, strict=True, assign=meta)
 
 
 def init_random(cfg: SpeechEncoderDecoderConfig, generator: torch.Generator,

@@ -15,7 +15,8 @@ the container.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import re
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -27,11 +28,37 @@ MIN_OUT_DIM = 256   # narrower linears stay in their float type
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[out, in] float -> (int8 [out, in], f32 scale [out])."""
+    """[out, in] float -> (int8 [out, in], f32 scale [out]). max |w| of a
+    row is max(-min, max) (one pass, no |w| copy), and the rounding and
+    clamp run in place on the quotient: the same values in fewer passes,
+    which the host quantizer of a streamed load feels."""
     wf = w.float()
-    scale = wf.abs().amax(1, keepdim=True).clamp_min(127e-12) * INV127
-    wq = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    lo, hi = torch.aminmax(wf, dim=1, keepdim=True)
+    scale = torch.maximum(-lo, hi).clamp_min(127e-12) * INV127
+    wq = (wf / scale).round_().clamp_(-127, 127).to(torch.int8)
     return wq, scale[:, 0]
+
+
+# the flat names whose weights `quantize_decoder_for_serving` quantizes:
+# the LLaMA layers' q/k/v/o and MLP projections and the output head
+_DECODER_QUANT = re.compile(
+    r"^decoder\.(model\.layers\.\d+\.(self_attn\.[qkvo]_proj"
+    r"|mlp\.(gate|up|down)_proj)|lm_head)\.weight$")
+
+
+def decoder_quant_key(name: str) -> bool:
+    """Whether the flat parameter `name` is one the serving quantizer
+    targets (`model_io.py::_decoder_quant_key`)."""
+    return _DECODER_QUANT.match(name) is not None
+
+
+def quantize_host(w: torch.Tensor, mode: str) -> Dict[str, torch.Tensor]:
+    """One weight quantized on the host, for a streamed load: {"weight_q8a8"
+    or "weight_q8": int8 [out, in], "scale": f32 [out]}, bit-equal to
+    `quantize_weight` on the device (the same float32 operations)."""
+    wq, scale = quantize_weight(w.cpu())
+    return {"weight_q8a8" if mode == "w8a8" else "weight_q8": wq,
+            "scale": scale}
 
 
 @torch.no_grad()

@@ -1,17 +1,20 @@
 """Transcript clean-up and word error rate (counterpart of
-`mtasr_tpu/utils/wer.py`: `clean_decoded_text`, and the word-mode
-`Calculator` that the trainer's `evaluate` scores with).
+`mtasr_tpu/utils/wer.py`: `clean_decoded_text`, and the `Calculator` that
+the trainer's `evaluate` and the inference CLI's report score with).
 
 The alignment is the reference scorer's: Levenshtein with cor 0 and sub /
 del / ins 1, and at equal cost the traceback prefers del, then ins, then
-the diagonal. Tokens are split on whitespace, upper-cased and stripped of
-`<...>` tags before they are aligned. Character mode, the ignore list and
-the alignment strings of the JAX module are not ported: the port's trainer
-does not use them.
+the diagonal. Tokens are split on whitespace (or, in char mode, into CJK
+characters and runs of other characters, punctuation dropped, `<tags>`
+whole), upper-cased unless case-sensitive, and stripped of `<...>` tags
+before they are aligned. `summary()` is the reference report's line. The
+ignore list and the alignment strings of the JAX module, and its cpWER and
+`score_files`, are not ported (ROADMAP.md queue 1, item 8).
 """
 from __future__ import annotations
 
 import re
+import unicodedata
 from dataclasses import dataclass
 from typing import Dict, List, Sequence
 
@@ -42,8 +45,46 @@ def _strip_tags(x: str) -> str:
     return "".join(chars)
 
 
-def _tokens(text: str) -> List[str]:
-    return [t for t in (_strip_tags(w.upper()) for w in text.split()) if t]
+PUNCTS = set("!,?、。！，；？：「」︰『』《》")
+SPACELIST = {" ", "\t", "\r", "\n"}
+
+
+def characterize(string: str) -> List[str]:
+    """Char-mode units (compute-wer.py's `characterize`)."""
+    res: List[str] = []
+    i = 0
+    while i < len(string):
+        char = string[i]
+        if char in PUNCTS:
+            i += 1
+            continue
+        cat = unicodedata.category(char)
+        if cat in ("Zs", "Cn") or char in SPACELIST:
+            i += 1
+        elif cat == "Lo":
+            res.append(char)
+            i += 1
+        else:
+            sep = ">" if char == "<" else " "
+            j = i + 1
+            while j < len(string):
+                c = string[j]
+                if ord(c) >= 128 or c in SPACELIST or c == sep:
+                    break
+                j += 1
+            if j < len(string) and string[j] == ">":
+                j += 1
+            res.append(string[i:j])
+            i = j
+    return res
+
+
+def _tokens(text: str, char_mode: bool = False,
+            case_sensitive: bool = False) -> List[str]:
+    words = characterize(text) if char_mode else text.split()
+    if not case_sensitive:
+        words = [w.upper() for w in words]
+    return [t for t in map(_strip_tags, words) if t]
 
 
 @dataclass
@@ -106,18 +147,28 @@ def align(lab: Sequence[str], rec: Sequence[str]) -> EditStats:
 
 
 class Calculator:
-    """Accumulates word-level edit statistics over utterances."""
+    """Accumulates edit statistics over utterances, word by word (or, with
+    `char_mode`, unit by unit)."""
 
-    def __init__(self):
+    def __init__(self, char_mode: bool = False,
+                 case_sensitive: bool = False):
+        self.char_mode, self.case_sensitive = char_mode, case_sensitive
         self.total = EditStats()
         self.per_utt: Dict[str, EditStats] = {}
 
     def calculate(self, utt_id: str, lab_text: str,
                   rec_text: str) -> EditStats:
-        stats = align(_tokens(lab_text), _tokens(rec_text))
+        stats = align(
+            _tokens(lab_text, self.char_mode, self.case_sensitive),
+            _tokens(rec_text, self.char_mode, self.case_sensitive))
         self.per_utt[utt_id] = stats
         self.total.add(stats)
         return stats
 
     def overall(self) -> EditStats:
         return self.total
+
+    def summary(self) -> str:
+        t = self.total
+        return (f"Overall -> {t.wer:.2f} % N={t.all} C={t.cor} S={t.sub} "
+                f"D={t.dele} I={t.ins}")

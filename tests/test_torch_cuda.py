@@ -1069,3 +1069,116 @@ def test_ctc_wrappers_refuse(gen):
     with pytest.raises(TypeError, match="int32"):
         kc.ctc_alpha(emit.contiguous(), lens.long(), lens,
                      allow.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# model directories and checkpoints on the card (full widths, 2 + 2 layers)
+# ---------------------------------------------------------------------------
+def _two_layer_model(seed=0, train=False):
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.train.lora import init_decoder_lora
+    from mtasr_tpu_torch.utils.convert import init_random
+    cfg, tok = full_width.config(num_hidden_layers=2, mask_time_prob=0.0)
+    cfg.decoder.num_hidden_layers = 2
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    model = init_random(cfg, g, "cuda", torch.bfloat16)
+    if train:
+        init_decoder_lora(model, g, r=16, alpha=32.0)
+    return cfg, tok, model
+
+
+def _wav_batch(B=4, seconds=3):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    wav = torch.randn((B, 16000 * seconds), generator=g, device="cuda")
+    amask = torch.ones_like(wav, dtype=torch.int32)
+    amask[-1, 16000 * seconds // 2:] = 0
+    return wav, amask
+
+
+def test_from_pretrained_on_the_card_serves_the_in_memory_tokens(
+        gen, tmp_path):
+    """save_model -> Transcriber.from_pretrained (the card by default): the
+    same bf16 parameters, the same greedy tokens, through the kernels."""
+    from mtasr_tpu_torch.api import Transcriber
+    from mtasr_tpu_torch.generate.engine import generate
+    from mtasr_tpu_torch.ops import kernels
+    from mtasr_tpu_torch.utils import model_io
+    cfg, tok, model = _two_layer_model()
+    model_io.save_model(str(tmp_path), cfg, model)
+    tr = Transcriber.from_pretrained(str(tmp_path))
+    assert next(tr.model.parameters()).device.type == "cuda"
+    for k, v in model.state_dict().items():
+        assert torch.equal(tr.model.state_dict()[k], v), k
+    wav, amask = _wav_batch()
+    ref = generate(model, cfg, wav, amask, max_new_tokens=24).sequences
+    kernels.reset_launch_counts()
+    got = generate(tr.model, tr.cfg, wav, amask, max_new_tokens=24).sequences
+    counts = kernels.launch_counts()
+    assert torch.equal(got, ref)
+    assert counts["conv0_fused"] == 1 and counts["decode_attention"] > 0
+
+
+def test_streamed_int8_load_peak_memory(gen, tmp_path):
+    """The streamed w8a8 load never holds the bf16 decoder on the card:
+    its peak stays inside its final footprint plus the largest tensor of
+    the file; its int8 weights equal quantize_for_serving's."""
+    from mtasr_tpu_torch.utils import model_io
+    from mtasr_tpu_torch.utils.quantize import quantize_for_serving
+    cfg, tok, model = _two_layer_model()
+    model_io.save_model(str(tmp_path), cfg, model)
+    largest = max(v.numel() * v.element_size()
+                  for v in model.state_dict().values())
+    quantize_for_serving(model, "w8a8")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, q = model_io.load_model_quantized(str(tmp_path), "w8a8")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    final = torch.cuda.memory_allocated() - base
+    print(f"streamed peak {peak} final {final} largest {largest}")
+    assert peak <= final + largest
+    for k, v in model.state_dict().items():
+        assert torch.equal(q.state_dict()[k], v), k
+
+
+def test_resume_with_kernels_equals_the_uninterrupted_run(gen, tmp_path,
+                                                          monkeypatch):
+    """Trainer on the card through #1-#3 and #8-#10, dropout on: 2 steps,
+    save, a fresh trainer resumed to 4 steps gives the bits of 4 steps
+    straight, parameters and AdamW moments, on deterministic algorithms."""
+    from mtasr_tpu_torch.config import DataConfig, TrainingConfig
+    from mtasr_tpu_torch.ops import kernels
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.train.loop import Trainer
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    batches = [full_width.train_batch(_two_layer_model()[0], 2, 2, seed=s)
+               for s in range(4)]
+
+    def trainer(out):
+        cfg, _, model = _two_layer_model(train=True)
+        tc = TrainingConfig(output_dir=str(out), learning_rate=1e-4,
+                            warmup_steps=1, max_steps=4, save_steps=2,
+                            logging_steps=1, pcgrad=False, seed=5)
+        return Trainer(cfg, tc, DataConfig(), model.train(),
+                       freeze_kwargs=dict(freeze_decoder=True))
+
+    with _deterministic():
+        kernels.reset_launch_counts()
+        a = trainer(tmp_path / "a")
+        a.train(lambda epoch: batches)
+        assert kernels.launch_counts()["flash_attention_bwd_dkv"] == 2 * 4
+        b = trainer(tmp_path / "b")
+        b.train(lambda epoch: batches, max_steps=2)
+        c = trainer(tmp_path / "b")
+        assert c.maybe_resume() and c.state.step == 2
+        c.train(lambda epoch: batches)
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(c.model.state_dict()[k], v), k
+    oa, oc = a.optimizer.state_dict(), c.optimizer.state_dict()
+    for slot in ("mu", "nu"):
+        for k, v in oa[slot].items():
+            assert torch.equal(oc[slot][k], v), (slot, k)

@@ -2,10 +2,13 @@
 blocks `jax` and `mtasr_tpu`, imports every module of `mtasr_tpu_torch`,
 serves a tiny model on the CPU through `generate` and `Transcriber` with the
 port's own config and tokenizer, then quantized (w8a8, int8 KV cache), and
-takes a train step through `Trainer`, then a hybrid SOT+CTC model through
+takes a train step through `Trainer` (which ends with a checkpoint), saves
+and reloads a model directory through the port's own safetensors I/O with
+the `safetensors` package blocked too, then a hybrid SOT+CTC model through
 a PCGrad `Trainer` step and `transcribe_ctc`, and checks that no kernel was
 launched (CPU tensors take the plain versions). No file of the port, and not
-`chip_smoke.py`, imports jax or the JAX package."""
+`chip_smoke.py`, imports jax, the JAX package or `safetensors`, and
+`transformers` is imported only inside `HFTokenizer`."""
 import pathlib
 import re
 import subprocess
@@ -14,9 +17,12 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _SCRIPT = r"""
-import sys
+import os, sys
 sys.modules["jax"] = None          # any `import jax` now raises
 sys.modules["mtasr_tpu"] = None    # and so does the JAX package
+sys.modules["safetensors"] = None  # the GPU machine has neither
+sys.modules["transformers"] = None
+import tempfile
 import importlib, pkgutil
 import numpy as np, torch
 import mtasr_tpu_torch
@@ -81,10 +87,18 @@ model = init_random(cfg, g, "cpu", torch.float32)
 init_decoder_lora(model, g, r=2, alpha=4.0)
 ex = [PreparedExample(f"u{i}", wav[0].numpy(), [],
                       [5, 6, sp.sc_token_id, 7]) for i in range(2)]
-trainer = Trainer(cfg, TrainingConfig(max_steps=1, warmup_steps=0),
+out = tempfile.mkdtemp()
+trainer = Trainer(cfg, TrainingConfig(max_steps=1, warmup_steps=0,
+                                      output_dir=out),
                   dc, model, freeze_kwargs=dict(freeze_decoder=True))
 trainer.train(lambda: batches_from_examples(ex, cfg, dc, 2))
 assert trainer.state.step == 1
+assert os.path.exists(os.path.join(out, "checkpoint-1", "model.safetensors"))
+from mtasr_tpu_torch.utils import model_io
+model_io.save_model(os.path.join(out, "m"), cfg, model)
+cfg2, model2 = model_io.load_model(os.path.join(out, "m"), "cpu")
+assert all(torch.equal(v, model2.state_dict()[k])
+           for k, v in model.state_dict().items())
 assert set(kernels.launch_counts().values()) == {0}, kernels.launch_counts()
 # hybrid SOT+CTC with PCGrad, then the one-shot CTC decode
 import dataclasses
@@ -92,7 +106,7 @@ hcfg = dataclasses.replace(cfg, train_mode="hybrid", talker_ctc=True,
                            separator_hidden=8)
 model = init_random(hcfg, g, "cpu", torch.float32)
 trainer = Trainer(hcfg, TrainingConfig(max_steps=1, warmup_steps=0,
-                                       pcgrad=True),
+                                       pcgrad=True, output_dir=out),
                   dc, model, freeze_kwargs=dict(freeze_decoder=True))
 trainer.train(lambda: batches_from_examples(ex, hcfg, dc, 2))
 assert trainer.state.step == 1
@@ -101,7 +115,8 @@ streams = Transcriber(hcfg, model, tok, dc=dc).transcribe_ctc(
 assert len(streams) == 1 and len(streams[0]) == 2
 assert set(kernels.launch_counts().values()) == {0}, kernels.launch_counts()
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m]}
-assert not loaded & {"jax", "mtasr_tpu"}, loaded
+assert not loaded & {"jax", "mtasr_tpu", "safetensors", "transformers"}, \
+    loaded
 print("NO_JAX_OK")
 """
 
@@ -130,3 +145,25 @@ def test_no_port_file_imports_the_jax_package():
     # `\b` does not match between `mtasr_tpu` and `_torch`
     assert _offenders(re.compile(
         r"^\s*(import|from)\s+mtasr_tpu\b", re.M)) == []
+
+
+def test_no_port_file_imports_safetensors():
+    assert _offenders(re.compile(
+        r"^\s*(import|from)\s+safetensors\b", re.M)) == []
+
+
+def test_transformers_is_imported_only_inside_hftokenizer():
+    """The one `transformers` import of the port is in `HFTokenizer`'s
+    constructor (indented: at call time, never at module import)."""
+    pattern = re.compile(r"^(\s*)(import|from)\s+transformers\b", re.M)
+    found = []
+    for f in sorted((ROOT / "mtasr_tpu_torch").rglob("*.py")) + \
+            [ROOT / "chip_smoke.py"]:
+        for m in pattern.finditer(f.read_text()):
+            found.append((str(f.relative_to(ROOT)), len(m.group(1))))
+    assert [f for f, _ in found] == ["mtasr_tpu_torch/data/tokenizer.py"]
+    assert all(indent > 0 for _, indent in found)
+    src = (ROOT / "mtasr_tpu_torch/data/tokenizer.py").read_text()
+    cls = src[src.index("class HFTokenizer"):]
+    cls = cls[:cls.index("\ndef ") if "\ndef " in cls else len(cls)]
+    assert "from transformers import" in cls

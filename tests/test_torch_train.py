@@ -422,7 +422,7 @@ def _dataset(tok, n=6, seed=0):
 def test_trainer_trains_and_evaluates(tmp_path):
     """Trainer.train: a few steps of freeze_decoder + LoRA training with
     dropout, SpecAugment and remat on, then evaluate (loss and WER through
-    generate); metrics.jsonl written; checkpointing refuses."""
+    generate); metrics.jsonl written; the final checkpoint resumes."""
     tok = CharTokenizer()
     sp = tok.add_special_tokens()
     cfg = _cfg(pad_token_id=sp.pad_token_id, sc_token_id=sp.sc_token_id,
@@ -460,10 +460,15 @@ def test_trainer_trains_and_evaluates(tmp_path):
                                          training=False, shuffle=False))
     em = trainer.evaluate(batches, refs)
     assert np.isfinite(em["eval_loss"]) and em["eval_wer"] >= 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.save()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.maybe_resume()
+    # train ended with a checkpoint, which a fresh trainer resumes from
+    assert (tmp_path / "checkpoint-4" / "model.safetensors").exists()
+    fresh = Trainer(pcfg, tc, dc, _model(cfg, _params(cfg, lora=True)),
+                    tokenizer=tok, freeze_kwargs=dict(freeze_decoder=True))
+    assert fresh.maybe_resume()
+    assert (fresh.state.step, fresh.state.epoch,
+            fresh.state.batch_in_epoch) == (4, 2, 1)
+    for n, p in model.named_parameters():
+        assert torch.equal(dict(fresh.model.named_parameters())[n], p), n
 
 
 def test_pcgrad_with_ctc_heads_raises():
@@ -474,6 +479,6 @@ def test_pcgrad_with_ctc_heads_raises():
                               train_mode="hybrid")
     assert callable(make_train_step(cfg, tconfig.TrainingConfig(pcgrad=True),
                                     None))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         SpeechEncoderDecoderModel(dataclasses.replace(cfg,
                                                       talker_ctc_refine=True))
