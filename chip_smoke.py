@@ -2,6 +2,9 @@
 """Smoke run of the PyTorch port (`mtasr_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only-family    # phases 1, 2 and 14 alone; its
+                                           # last line {"ok": true, "only":
+                                           # "family"}
 
 Phases, one line each, any failure exits non-zero:
 
@@ -91,7 +94,25 @@ Phases, one line each, any failure exits non-zero:
     (#8-#10 launch); (5) `cli.inference_asr --quantize w8a8 --kv_quant` and
     `--ctc_decoding` on a hybrid model directory over the same Kaldi
     directory: `label`, `decod` and `wer` written, the greedy hypotheses
-    equal to `Transcriber.transcribe`'s; the phase's wall time.
+    equal to `Transcriber.transcribe`'s; the phase's wall time;
+14. the bridge and adapter family (`full_width.FAMILY`), on the hybrid
+    model at full width, each leg with the launch counts set to 0 just
+    before it and read just after: (A, bf16) the refiner, the CTC prompt
+    and ctcaware adapters over CTC-token memory: two `transcribe` calls
+    (#1-#4), the RTFx beside phase 4's without the family, the logits of
+    the prefill and 8 decode steps kernels vs plain within LOGITS_TOL, and
+    with the decoder's kernels alone (both sides read one encode, the CTC
+    prompt's argmax ids included) within LOGITS_TOL_DECODER;
+    (B) the raw bridge and adapgatetiny adapters (LoRA r 16) over the
+    separated streams: one w8a8 + int8 KV `transcribe` call (#6; the
+    family stays in bf16), then `Trainer` with PCGrad, decoder frozen with
+    LoRA, B = 16 x 10 s: the encoder, separator and CTC-head gradients of
+    one deterministic step kernels vs plain within HYBRID_GRAD_TOL and the
+    family's own within FAMILY_GRAD_TOL, then 1 untimed and
+    FAMILY_TRAIN_STEPS timed steps with their launch counts (#1-#3,
+    #8-#12), ms/step, peak memory and a falling loss; (C, bf16) the
+    softmax bridge and gatetiny adapters over the 50 Hz features: one
+    `transcribe` call, the logits kernels vs plain within LOGITS_TOL.
 
 Every kernel's record carries its error, its time, its plain version's
 time, the least time the card could take (`bound_ms`, from the bytes the
@@ -131,6 +152,11 @@ LOGITS_TOL = 0.05     # rel-L2 of bf16 logits, kernels vs plain versions
 # (the w8a8 activation rounding absorbs their last-bit differences), #6 or
 # #7 ignoring its mask 0.146 and 1.08 at the worst step
 LOGITS_TOL_INT8 = 0.02
+# the same, bf16, the decoder's kernels alone (phase 14, leg A: the CTC
+# prompt's argmax ids flip with the encoder's rounding, so the whole-model
+# gate reads the decoder on other inputs): sound kernels read 0-0.0091, #4
+# ignoring its mask 0.0545 at the worst step (PERF.md, Findings)
+LOGITS_TOL_DECODER = 0.02
 SHORT_S = (0.8, 1.0)  # short-prefill waveforms, in a 1 s bucket
 TRAIN_BATCH = 16
 TRAIN_STEPS = 5       # timed steps, after one untimed
@@ -146,6 +172,14 @@ GRAD_TOL = 0.015
 # cuDNN convolutions vary between runs); #11 or #12 ignoring the skip
 # transition read 1.69 and 0.96 (PERF.md, Findings)
 HYBRID_GRAD_TOL = 0.03
+# the bridge and adapter family's own gradients (phase 14, leg B: the
+# adapters), kernels vs plain, rel-L2 over all of them at once
+FAMILY_GRAD_TOL = 0.03
+FAMILY_TRAIN_STEPS = 2  # timed steps of phase 14's train leg, after one
+# the parameter groups the hybrid gradient gates read: HYBRID_GRAD_TOL the
+# first, FAMILY_GRAD_TOL the family's
+GATE_TOPS = ("encoder", "separator", "serialized_ctc")
+FAMILY_TOPS = ("cross_att_adap", "serilized_refine", "ctc_extractor_concat")
 # kernels #11 / #12 against their plain versions: both run the same f32
 # operations in the same order; the card's exp / log and ATen's differ in
 # the last bit, which the T-step recursion carries
@@ -761,45 +795,55 @@ def step_logits(torch, cfg, model, gen, wav, amask, tokens=None,
     return torch.stack(seen), out.sequences
 
 
-def logits_phase(torch, cfg, model, transcriber, wavs, tag: str) -> None:
+def logits_phase(torch, cfg, model, transcriber, wavs, tag: str,
+                 decoder_too: bool = False) -> None:
     """The model with kernels against the model with the plain versions:
     rel-L2 of the logits at the prefill and at each of the first GATE_STEPS
     decode steps, each within the gate. bf16: the whole model, within
-    LOGITS_TOL. int8: the decoder's kernels alone (both sides run the
-    encoder's kernels, so its bf16 differences, which w8a8 amplifies, do
-    not enter), within LOGITS_TOL_INT8. Fails unless the kernel run
-    launched the leg's decode kernel and the plain run none of the kernels
-    it replaced."""
+    LOGITS_TOL, and with decoder_too also the decoder's kernels alone,
+    within LOGITS_TOL_DECODER. int8: the decoder's kernels alone (both
+    sides run the encoder's kernels, so its bf16 differences, which w8a8
+    amplifies, do not enter), within LOGITS_TOL_INT8. Every reading is
+    printed before any is gated. Fails unless the kernel run launched the
+    leg's decode kernel and each plain run none of the kernels it
+    replaced."""
     from mtasr_tpu_torch.ops import kernels
     wav, amask = one_batch(torch, transcriber, wavs)
     gen = transcriber.gen
     int8 = gen.kv_quant
-    tol = LOGITS_TOL_INT8 if int8 else LOGITS_TOL
     n0 = kernels.launch_counts()
     lk, toks = step_logits(torch, cfg, model, gen, wav, amask)
     n1 = kernels.launch_counts()
-    lp, _ = step_logits(torch, cfg, model, gen, wav, amask, tokens=toks,
-                        plain=True, decoder_only=int8)
-    n2 = kernels.launch_counts()
-    torch.cuda.synchronize()
-    replaced = [n for n in kernels.WRAPPERS if not int8 or "decode" in n]
     step_kernel = "decode_attention_int8" if int8 else "decode_attention"
-    if n1[step_kernel] == n0[step_kernel] or \
-            any(n2[n] != n1[n] for n in replaced):
-        fail(f"{tag}: the kernel run or the plain run took the wrong route "
-             f"(launches {n0} -> {n1} -> {n2})")
-    if lk.shape != lp.shape or lk.shape[0] != GATE_STEPS + 1 or \
-            not bool(torch.isfinite(lk).all()):
-        fail(f"step logits: shapes {tuple(lk.shape)} / {tuple(lp.shape)} "
-             "or non-finite values")
-    rel = [float((lk[t] - lp[t]).norm() / lp[t].norm())
-           for t in range(lk.shape[0])]
-    what = "decoder kernels" if int8 else "kernels"
-    say(f"model[{tag}]: {what} vs plain, logits rel_l2 at prefill and decode"
-        f" steps 1-{GATE_STEPS}: {[round(r, 5) for r in rel]} (tol {tol} "
-        f"each)")
-    if not all(math.isfinite(r) and r <= tol for r in rel):
-        fail(f"{tag}: step logits rel_l2 {max(rel)} over {tol}")
+    if n1[step_kernel] == n0[step_kernel] or lk.shape[0] != GATE_STEPS + 1 \
+            or not bool(torch.isfinite(lk).all()):
+        fail(f"{tag}: the kernel run took the wrong route (launches {n0} -> "
+             f"{n1}) or gave {tuple(lk.shape)} logits or non-finite values")
+    legs = [(True, LOGITS_TOL_INT8)] if int8 else [(False, LOGITS_TOL)]
+    if decoder_too and not int8:
+        legs.append((True, LOGITS_TOL_DECODER))
+    over = []
+    for decoder_only, tol in legs:
+        n1 = kernels.launch_counts()
+        lp, _ = step_logits(torch, cfg, model, gen, wav, amask, tokens=toks,
+                            plain=True, decoder_only=decoder_only)
+        n2 = kernels.launch_counts()
+        torch.cuda.synchronize()
+        replaced = [n for n in kernels.WRAPPERS
+                    if not decoder_only or "decode" in n]
+        if any(n2[n] != n1[n] for n in replaced) or lk.shape != lp.shape:
+            fail(f"{tag}: the plain run took the wrong route (launches {n1}"
+                 f" -> {n2}) or gave {tuple(lp.shape)} logits")
+        rel = [float((lk[t] - lp[t]).norm() / lp[t].norm())
+               for t in range(lk.shape[0])]
+        what = "decoder kernels" if decoder_only else "kernels"
+        say(f"model[{tag}]: {what} vs plain, logits rel_l2 at prefill and "
+            f"decode steps 1-{GATE_STEPS}: {[round(r, 5) for r in rel]} (tol"
+            f" {tol} each)")
+        if not all(math.isfinite(r) and r <= tol for r in rel):
+            over.append(f"{what} {max(rel)} over {tol}")
+    if over:
+        fail(f"{tag}: step logits rel_l2 " + ", ".join(over))
 
 
 def short_requests(seed: int):
@@ -1290,16 +1334,23 @@ def hybrid_grads(torch, cfg, model, t, plain: bool):
     ids = {id(p): n for n, p in model.named_parameters()}
     grads = {ids[id(p)]: g.detach().float()
              for p, g in list(zip(shared, g_shared)) + list(zip(rest, g_rest))
-             if ids[id(p)].split(".")[0] in ("encoder", "separator",
-                                             "serialized_ctc")}
+             if ids[id(p)].split(".")[0] in GATE_TOPS + FAMILY_TOPS}
     return float(out.loss.detach()), grads, (n0, kernels.launch_counts())
+
+
+def rel_l2(got, ref, names) -> float:
+    num = sum(float((got[n] - ref[n]).pow(2).sum()) for n in names)
+    den = sum(float(ref[n].pow(2).sum()) for n in names)
+    return math.sqrt(num / den)
 
 
 def hybrid_gradient_gate(torch, cfg, model, t) -> float:
     """The encoder, separator and CTC-head gradients of one deterministic
     PCGrad step, kernels against plain versions: their global rel-L2, and
-    by part. Fails over HYBRID_GRAD_TOL, or if the kernel run missed a
-    kernel of the path or the plain run launched one."""
+    by part; with the bridge and adapter family, its own gradients'
+    rel-L2 too. Fails over HYBRID_GRAD_TOL (FAMILY_GRAD_TOL for the
+    family's), or if the kernel run missed a kernel of the path or the
+    plain run launched one."""
     from mtasr_tpu_torch.ops import kernels
     loss_k, gk, (a0, a1) = hybrid_grads(torch, cfg, model, t, False)
     loss_p, gp, (b0, b1) = hybrid_grads(torch, cfg, model, t, True)
@@ -1309,32 +1360,41 @@ def hybrid_gradient_gate(torch, cfg, model, t) -> float:
             any(b1[n] != b0[n] for n in routed):
         fail(f"hybrid gradient check took the wrong route: {a0} -> {a1} -> "
              f"{b1}")
+    gated = [n for n in gk if n.split(".")[0] in GATE_TOPS]
     parts = {}
-    for top in ("encoder", "separator", "serialized_ctc"):
-        names = [n for n in gk if n.startswith(top + ".")]
-        num = sum(float((gk[n] - gp[n]).pow(2).sum()) for n in names)
-        den = sum(float(gp[n].pow(2).sum()) for n in names)
-        parts[top] = (math.sqrt(num / den), len(names))
-    num = math.sqrt(sum(float((gk[n] - gp[n]).pow(2).sum()) for n in gk))
-    rel = num / math.sqrt(sum(float(gp[n].pow(2).sum()) for n in gp))
+    for top in GATE_TOPS:
+        names = [n for n in gated if n.startswith(top + ".")]
+        parts[top] = (rel_l2(gk, gp, names), len(names))
+    rel = rel_l2(gk, gp, gated)
     say(f"hybrid: gradients kernels vs plain, one deterministic PCGrad step: "
-        f"loss {loss_k:.6f} vs {loss_p:.6f}, rel_l2 {rel:.5g} over {len(gk)} "
-        f"tensors (tol {HYBRID_GRAD_TOL}); by part "
+        f"loss {loss_k:.6f} vs {loss_p:.6f}, rel_l2 {rel:.5g} over "
+        f"{len(gated)} tensors (tol {HYBRID_GRAD_TOL}); by part "
         f"{ {k: (round(v[0], 6), v[1]) for k, v in parts.items()} }")
     if not math.isfinite(rel) or rel > HYBRID_GRAD_TOL:
         fail(f"hybrid gradients rel_l2 {rel} over {HYBRID_GRAD_TOL}")
+    fam = [n for n in gk if n.split(".")[0] in FAMILY_TOPS]
+    if fam:
+        rel_f = rel_l2(gk, gp, fam)
+        say(f"hybrid: the family's own gradients kernels vs plain, rel_l2 "
+            f"{rel_f:.5g} over {len(fam)} tensors (tol {FAMILY_GRAD_TOL}), "
+            f"norm {math.sqrt(sum(float(gp[n].pow(2).sum())for n in fam)):.5g}")
+        if not math.isfinite(rel_f) or rel_f > FAMILY_GRAD_TOL:
+            fail(f"family gradients rel_l2 {rel_f} over {FAMILY_GRAD_TOL}")
     del gk, gp
     torch.cuda.empty_cache()
     return rel
 
 
-def hybrid_train_phase(torch, card: str, launches) -> None:
+def hybrid_train_phase(torch, card: str, launches, family=None,
+                       steps: int = TRAIN_STEPS) -> None:
     """Full-width hybrid SOT+CTC training with PCGrad through `Trainer`
-    (module docstring, phase 11). Fails on a non-finite loss, a last loss
-    or loss_ctc on the fixed batch not below the first, launch counts other
-    than a step's 1 conv0, 24 flash forward, 2 x 24 of each flash backward
-    kernel and 4 of each CTC kernel, or gradients (kernels vs plain) over
-    HYBRID_GRAD_TOL."""
+    (module docstring, phase 11; with `family`, a configuration of the
+    bridge and adapter family on it: phase 14's leg B). Fails on a
+    non-finite loss, a last loss or loss_ctc on the fixed batch not below
+    the first, launch counts other than a step's 1 conv0, 24 flash
+    forward, 2 x 24 of each flash backward kernel and 4 of each CTC
+    kernel, or gradients (kernels vs plain) over HYBRID_GRAD_TOL (the
+    family's over FAMILY_GRAD_TOL)."""
     import numpy as np
 
     from mtasr_tpu_torch.config import DataConfig, TrainingConfig
@@ -1345,7 +1405,8 @@ def hybrid_train_phase(torch, card: str, launches) -> None:
 
     t0 = time.perf_counter()
     cfg, model = full_width.build_train(SEED, "cuda", torch.bfloat16,
-                                        hybrid=True)
+                                        hybrid=True, family=family)
+    tag = "hybrid" if family is None else f"family {family} train"
     batch = full_width.train_batch(cfg, TRAIN_BATCH, AUDIO_S, SEED)
     tc = TrainingConfig(output_dir=tempfile.mkdtemp(prefix="hybrid_smoke_"),
                         learning_rate=TRAIN_LR, warmup_steps=2,
@@ -1355,7 +1416,7 @@ def hybrid_train_phase(torch, card: str, launches) -> None:
     trainer.save = lambda *a, **kw: None     # as in train_phase
     summ = freeze_summary(model, trainer.mask)
     torch.cuda.synchronize()
-    say(f"hybrid: WavLM-Large + separator ({cfg.separator_hidden}) + "
+    say(f"{tag}: WavLM-Large + separator ({cfg.separator_hidden}) + "
         f"{cfg.talker_numbers} CTC heads of {cfg.ctc_odim} + LLaMA-3.2-1B "
         f"bf16 (+ LoRA r 16 f32), ctc_alpha {cfg.ctc_alpha}, PCGrad, "
         f"{summ['trainable']} of {summ['total']} parameters train, batch "
@@ -1374,7 +1435,7 @@ def hybrid_train_phase(torch, card: str, launches) -> None:
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer.train(lambda: [batch] * TRAIN_STEPS, max_steps=1 + TRAIN_STEPS)
+    trainer.train(lambda: [batch] * steps, max_steps=1 + steps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = kernels.launch_counts()
@@ -1382,33 +1443,33 @@ def hybrid_train_phase(torch, card: str, launches) -> None:
     K, L_enc = cfg.talker_numbers, cfg.encoder.num_hidden_layers
     ctc_names = ("ctc_alpha", "ctc_beta_post")
     expect = dict.fromkeys(kernels.WRAPPERS, 0)
-    expect["conv0_fused"] = TRAIN_STEPS
-    expect["flash_attention"] = L_enc * TRAIN_STEPS
+    expect["conv0_fused"] = steps
+    expect["flash_attention"] = L_enc * steps
     for n in kernels.WRAPPERS:
         if n.startswith("flash_attention_bwd"):
-            expect[n] = K * L_enc * TRAIN_STEPS      # K encoder backwards
+            expect[n] = K * L_enc * steps      # K encoder backwards
     for n in ctc_names:       # the loss's and the per-head pass's, per head
-        expect[n] = 2 * K * TRAIN_STEPS
+        expect[n] = 2 * K * steps
     for name, n in counts.items():
         launches[name] += n
     log = trainer.metrics_log
-    say(f"hybrid: {TRAIN_STEPS} timed steps after 1 untimed ({first_s:.3f} "
-        f"s): {1e3 * dt / TRAIN_STEPS:.2f} ms/step, "
-        f"{TRAIN_BATCH * TRAIN_STEPS / dt:.3f} samples/s, peak memory "
+    say(f"{tag}: {steps} timed steps after 1 untimed ({first_s:.3f} "
+        f"s): {1e3 * dt / steps:.2f} ms/step, "
+        f"{TRAIN_BATCH * steps / dt:.3f} samples/s, peak memory "
         f"{peak:.2f} GiB (max_memory_allocated), launches {counts} "
         f"B={TRAIN_BATCH} [{card}]")
     for key in ("loss", "loss_attn", "loss_ctc", "grad_norm"):
-        say(f"hybrid: {key} {[round(m[key], 5) for m in log]}")
-    say(f"hybrid: ctc_head_grad_norms "
+        say(f"{tag}: {key} {[round(m[key], 5) for m in log]}")
+    say(f"{tag}: ctc_head_grad_norms "
         f"{[[round(x, 4) for x in m['ctc_head_grad_norms']] for m in log]}")
     if counts != expect:
-        fail(f"hybrid launch counts {counts} != expected {expect}")
+        fail(f"{tag} launch counts {counts} != expected {expect}")
     losses = [m["loss"] for m in log]
     ctc = [m["loss_ctc"] for m in log]
-    if not all(np.isfinite(losses + ctc)) or len(losses) != 1 + TRAIN_STEPS:
+    if not all(np.isfinite(losses + ctc)) or len(losses) != 1 + steps:
         fail(f"hybrid losses {losses} / {ctc}")
     if not (losses[-1] < losses[0] and ctc[-1] < ctc[0]):
-        fail(f"the hybrid loss or loss_ctc did not fall: {losses} / {ctc}")
+        fail(f"the {tag} loss or loss_ctc did not fall: {losses} / {ctc}")
     del trainer, model, t
     torch.cuda.empty_cache()
 
@@ -1887,6 +1948,72 @@ def model_dirs_phase(torch, card: str, launches) -> None:
         f"[{card}]")
 
 
+# -- phase 14: the bridge and adapter family -----------------------------------
+def family_phase(torch, card: str, launches, rtfx_bf16: float) -> None:
+    """The bridge and adapter family at full width (module docstring,
+    phase 14)."""
+    from mtasr_tpu_torch.generate import engine
+    from mtasr_tpu_torch.models.layers import QuantLinear
+    from mtasr_tpu_torch.tools import full_width
+
+    t_phase = time.perf_counter()
+    requests = full_width.waveforms(SEED + 14, 2, BATCH, (6.0, 10.0))
+
+    def serve(leg, reqs, **kw):
+        t0 = time.perf_counter()
+        cfg, model, tr = full_width.build(SEED, "cuda", torch.bfloat16,
+                                          family=leg, **kw)
+        n_fam = sum(p.numel() for n, p in model.named_parameters()
+                    if n.split(".")[0] in FAMILY_TOPS)
+        torch.cuda.synchronize()
+        say(f"family {leg}: {full_width.FAMILY[leg]}, {n_fam} family "
+            f"parameters, built {time.perf_counter() - t0:.2f} s")
+        tag = f"family {leg} " + ("int8" if kw else "bf16")
+        counts, rtfx = serve_phase(torch, card, cfg, tr, reqs, tag)
+        for name, n in counts.items():
+            launches[name] += n
+        # the decoder memory and the adapters' (the CTC prompt and the
+        # token memory may hit their cap, or be all padding, with random
+        # heads), finite
+        wav, amask = one_batch(torch, tr, reqs[-1])
+        with torch.inference_mode():
+            enc = engine.encode_maybe_chunked(model, cfg, wav, amask, None)
+        mem = enc.acoustic_mem
+        if not (bool(torch.isfinite(enc.encoder_hidden_states).all())
+                and (mem is None or bool(torch.isfinite(mem).all()))):
+            fail(f"family {leg}: non-finite decoder or adapter memory")
+        say(f"family {leg}: decoder memory "
+            f"{tuple(enc.encoder_hidden_states.shape)}, valid a row "
+            f"{enc.encoder_attention_mask.sum(1).tolist()}; adapter memory "
+            f"{None if mem is None else tuple(mem.shape)}, valid slots a row "
+            f"{None if mem is None else (~enc.acoustic_pad_mask).sum(1).tolist()}")
+        return cfg, model, tr, rtfx
+
+    cfg, model, tr, rtfx = serve("A", requests)
+    say(f"family A: RTFx {rtfx:.2f} against phase 4's bf16 {rtfx_bf16:.2f} "
+        f"without the family B={BATCH} [{card}]")
+    logits_phase(torch, cfg, model, tr, requests[-1], "family A bf16",
+                 decoder_too=True)
+    del cfg, model, tr
+    torch.cuda.empty_cache()
+
+    cfg, model, tr, _ = serve("B", requests[:1], quantize="w8a8",
+                              kv_quant=True)
+    if any(isinstance(m, QuantLinear) for m in model.cross_att_adap.modules()):
+        fail("family B: an adapter was quantized (the decoder scope leaves "
+             "the family in bf16)")
+    del cfg, model, tr
+    torch.cuda.empty_cache()
+    hybrid_train_phase(torch, card, launches, family="B",
+                       steps=FAMILY_TRAIN_STEPS)
+
+    cfg, model, tr, _ = serve("C", requests[:1])
+    logits_phase(torch, cfg, model, tr, requests[0], "family C bf16")
+    del cfg, model, tr
+    torch.cuda.empty_cache()
+    say(f"family: phase wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> None:
     # the port stands alone: importing JAX or the JAX package now fails
     sys.modules["jax"] = None
@@ -1907,6 +2034,23 @@ def main() -> None:
     torch.cuda.synchronize()
     say(f"build: {time.perf_counter() - t0:.2f} s (nvcc, in parallel "
         f"{ {k: round(v, 2) for k, v in _build.build_seconds.items()} })")
+
+    if "--only-family" in sys.argv[1:]:
+        # phase 14 alone, beside a bf16 serve of the model without the
+        # family on the same requests (in place of phase 4's RTFx)
+        launches = dict.fromkeys(kernels.WRAPPERS, 0)
+        cfg, model, transcriber = full_width.build(SEED, "cuda",
+                                                   torch.bfloat16)
+        _, rtfx_bf16 = serve_phase(
+            torch, card, cfg, transcriber,
+            full_width.waveforms(SEED + 14, 2, BATCH, (6.0, 10.0)), "bf16")
+        del cfg, model, transcriber
+        torch.cuda.empty_cache()
+        family_phase(torch, card, launches, rtfx_bf16)
+        say(f"family: launches {launches} (phase 14 alone: no kernels "
+            "record)")
+        print(json.dumps({"ok": True, "only": "family"}), flush=True)
+        return
 
     records = {}
     kernel_phase(torch, card, records)
@@ -1997,6 +2141,9 @@ def main() -> None:
 
     # -- model directories, training checkpoints and the CLIs -------------
     model_dirs_phase(torch, card, launches)
+
+    # -- the bridge and adapter family -------------------------------------
+    family_phase(torch, card, launches, rtfx_bf16)
 
     records = list(records.values())
     for r in records:

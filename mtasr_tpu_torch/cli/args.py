@@ -10,9 +10,6 @@ import argparse
 
 # flag -> (its default, the ROADMAP.md queue 1 item that ports its part)
 UNPORTED = {
-    "talker_ctc_refine": (False, "item 6: bridge and adapter family"),
-    "ctc_bridge": (False, "item 6: bridge and adapter family"),
-    "decoder_cross_attention": (False, "item 6: bridge and adapter family"),
     "num_beams": (1, "item 7: decoding variants"),
     "speculative": (None, "item 7: decoding variants"),
     "pipelined": (False, "item 7: decoding variants (generate/pipelined.py "

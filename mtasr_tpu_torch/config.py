@@ -4,10 +4,8 @@ Field names, defaults and the builders follow the JAX package's, which
 follow HF's `WavLMConfig` / `LlamaConfig`, so a config moves between the
 two by name (`from_fields`) and through the same `config.json`
 (`to_json` / `from_json`): every field of the JAX dataclasses is here with
-its default. The mode switches of parts the port does not run
-(`ctc_bridge`, `talker_ctc_refine`, the cross-attention adapters) are
-refused by `models/speech_encoder_decoder.py::check_supported`, so that a
-config asking for one is refused and not ignored. The JAX package's
+its default. The `decoder_cross_attention_dynamic*` knobs are carried and,
+as in the JAX package, used by no model. The JAX package's
 backend selectors (`attention_impl`, `conv0_impl`, `conv_impl`,
 `gelu_impl`, `decode_attn_impl`, `scan_layers`) are carried for the round
 trip and select nothing: the port chooses by the tensor's device.
@@ -206,8 +204,7 @@ class SpeechEncoderDecoderConfig:
     bosr_token_id: int = 128262        # <bos_response>
     eosr_token_id: int = 128263        # <eos_response>
 
-    # mode switches; the port refuses refiners, bridges and cross-attention
-    # (models/speech_encoder_decoder.py::check_supported)
+    # mode switches
     train_mode: str = "attention"      # ctc | attention | hybrid
     talker_ctc: bool = False           # separator + K serialized-CTC heads
     talker_numbers: int = 2            # <sc>-separated talkers in a label
@@ -218,7 +215,8 @@ class SpeechEncoderDecoderConfig:
     ctc_bridge: bool = False
     ctc_bridge_type: str = "raw"       # raw | softmax | ctcprompt
     ctc_alpha: float = 0.7
-    # the cross-attention adapter family (refused when switched on)
+    # the cross-attention adapter family; the dynamic* knobs are inert, as
+    # in the JAX package
     decoder_cross_attention: bool = False
     decoder_cross_attention_type: str = "tiny"
     decoder_cross_attention_feature: str = "raw"
@@ -235,8 +233,7 @@ class SpeechEncoderDecoderConfig:
     max_length: int = 200
 
     def validate(self) -> None:
-        """Reject a config no model can have (unported modes are refused
-        separately, with the ROADMAP item that ports them)."""
+        """Reject a config no model can have."""
         err = []
         if self.train_mode not in ("ctc", "attention", "hybrid"):
             err.append(f"train_mode={self.train_mode!r} not in "

@@ -17,6 +17,7 @@ path on its separated stream, no decoder.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -28,7 +29,8 @@ from mtasr_tpu_torch.models.llama import (
     KVCache, embed_tokens, llama_forward, lm_head,
 )
 from mtasr_tpu_torch.models.speech_encoder_decoder import (
-    EncodedSpeech, SpeechEncoderDecoderModel, encode_speech, forward_ctc,
+    EncodedSpeech, SpeechEncoderDecoderModel, adapter_callback,
+    encode_speech, forward_ctc,
 )
 from mtasr_tpu_torch.train.lora import merged
 
@@ -77,7 +79,9 @@ def encode_maybe_chunked(model: SpeechEncoderDecoderModel,
                          input_values: torch.Tensor, audio_mask,
                          chunk: Optional[int]) -> EncodedSpeech:
     """Encode the batch, optionally `chunk` rows at a time (bounds the
-    encoder's peak memory; the encoder couples no rows)."""
+    encoder's peak memory; the encoder couples no rows). Every field of
+    the chunks is concatenated along the batch, as the JAX `tree_map`
+    does: the memories, the separated streams and their masks too."""
     B = input_values.shape[0]
     if chunk is None or not 0 < chunk < B:
         return encode_speech(model, cfg, input_values, audio_mask)
@@ -85,9 +89,16 @@ def encode_maybe_chunked(model: SpeechEncoderDecoderModel,
                           audio_mask[i:i + chunk]
                           if audio_mask is not None else None)
             for i in range(0, B, chunk)]
-    return EncodedSpeech(
-        torch.cat([e.encoder_hidden_states for e in encs], dim=0),
-        torch.cat([e.encoder_attention_mask for e in encs], dim=0))
+
+    def cat(parts):
+        if parts[0] is None:
+            return None
+        if isinstance(parts[0], list):
+            return [torch.cat(p, dim=0) for p in zip(*parts)]
+        return torch.cat(parts, dim=0)
+    return EncodedSpeech(**{
+        f.name: cat([getattr(e, f.name) for e in encs])
+        for f in dataclasses.fields(EncodedSpeech)})
 
 
 def filter_logits(logits: torch.Tensor,
@@ -125,10 +136,13 @@ def _sample_token(logits: torch.Tensor, gen: GenerationConfig,
 def _prefill(model: SpeechEncoderDecoderModel,
              cfg: SpeechEncoderDecoderConfig, enc: EncodedSpeech,
              prefill_ids: torch.Tensor, splice_index: int, S_max: int,
-             kv_quant: bool = False):
+             kv_quant: bool = False, layer_callback=None):
     """Splice the embeddings, run the prefill into a fresh KV cache (int8
-    with `kv_quant`). Returns (cache, last_logits [B, V], n_valid [B],
-    total_prefill)."""
+    with `kv_quant`) with the decoder's layer hook `layer_callback` (the
+    adapters: `speech_encoder_decoder.adapter_callback`). Returns (cache,
+    last_logits [B, V], n_valid [B], total_prefill). A CTC prompt prefix
+    is part of the speech block: its valid ids count in n_valid, its
+    padding sits inside the block, as in the JAX engine."""
     dec, dec_cfg = model.decoder, cfg.decoder
     speech = enc.encoder_hidden_states
     B, Ts = speech.shape[:2]
@@ -160,7 +174,7 @@ def _prefill(model: SpeechEncoderDecoderModel,
         logits, cache = llama_forward(
             dec, dec_cfg, inputs_embeds, position_ids,
             key_valid_mask=key_valid, kv_cache=cache, cache_offset=0,
-            logits_to_keep=1)
+            logits_to_keep=1, layer_callback=layer_callback)
         last_logits = logits[:, -1]
     else:
         # [BOS | speech]: the last real element is each row's last valid
@@ -168,7 +182,7 @@ def _prefill(model: SpeechEncoderDecoderModel,
         hidden, cache = llama_forward(
             dec, dec_cfg, inputs_embeds, position_ids,
             key_valid_mask=key_valid, kv_cache=cache, cache_offset=0,
-            compute_logits=False)
+            compute_logits=False, layer_callback=layer_callback)
         last_idx = splice_index + n_valid - 1
         h_last = hidden[torch.arange(B, device=device), last_idx]
         last_logits = lm_head(dec, dec_cfg, h_last)
@@ -180,8 +194,10 @@ def _decode(model: SpeechEncoderDecoderModel,
             last_logits: torch.Tensor, n_valid: torch.Tensor, Lp: int,
             total_prefill: int, dtype: torch.dtype, gen: GenerationConfig,
             max_new_tokens: int,
-            generator: Optional[torch.Generator]) -> GenerateOutput:
-    """The step loop after the prefill."""
+            generator: Optional[torch.Generator],
+            layer_callback=None) -> GenerateOutput:
+    """The step loop after the prefill; `layer_callback` the prefill's
+    (the adapters, with the memory keys and values it kept)."""
     dec, dec_cfg = model.decoder, cfg.decoder
     B = last_logits.shape[0]
     eos_id, pad_id = cfg.eos_token_id, cfg.pad_token_id
@@ -200,7 +216,8 @@ def _decode(model: SpeechEncoderDecoderModel,
         pos_t = (Lp + n_valid)[:, None] - 1 + t
         logits_t, cache = llama_forward(
             dec, dec_cfg, emb_t, pos_t, kv_cache=cache,
-            cache_offset=total_prefill + t - 1, logits_to_keep=1)
+            cache_offset=total_prefill + t - 1, logits_to_keep=1,
+            layer_callback=layer_callback)
         nxt = _sample_token(logits_t[:, -1], gen, generator)
         nxt = torch.where(done, pad_id, nxt)
         out[:, t] = nxt
@@ -255,11 +272,14 @@ def _generate(model, cfg, input_values, audio_mask, prompt_ids, gen,
                                               input_values.device)
     Lp = prefill_ids.shape[1]
     S_max = Lp + enc.encoder_hidden_states.shape[1] + max_new_tokens
+    # the adapters' memory keys and values, computed once a request and a
+    # layer (the JAX loop leaves them loop-invariant, which XLA hoists)
+    cb = adapter_callback(model, cfg, enc, keep_kv=True)
     cache, last_logits, n_valid, total_prefill = _prefill(
-        model, cfg, enc, prefill_ids, splice_index, S_max, gen.kv_quant)
+        model, cfg, enc, prefill_ids, splice_index, S_max, gen.kv_quant, cb)
     return _decode(model, cfg, cache, last_logits, n_valid, Lp,
                    total_prefill, enc.encoder_hidden_states.dtype, gen,
-                   int(max_new_tokens), generator)
+                   int(max_new_tokens), generator, cb)
 
 
 @torch.inference_mode()

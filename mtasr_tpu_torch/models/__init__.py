@@ -5,5 +5,10 @@ mirror the JAX package's.
   layers.py                  -- linear / conv / norm primitives
   wavlm.py                   -- WavLM encoder
   llama.py                   -- LLaMA decoder + KV cache
-  speech_encoder_decoder.py  -- the composite model (attention mode)
+  separator.py, ctc_head.py  -- speaker separator, serialized-CTC heads
+  losses.py                  -- CE, serialized / PIT CTC, hybrid
+  adapters.py                -- cross-attention adapters (decoder layers)
+  bridges.py                 -- CTC frame refiner, token memory, CTC prompt
+  refiners.py                -- the softmax CTC bridge's extractor
+  speech_encoder_decoder.py  -- the composite model
 """

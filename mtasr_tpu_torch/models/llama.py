@@ -23,7 +23,7 @@ Parameter names are the JAX tree's flat keys under `decoder.`.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -275,7 +275,9 @@ def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
                   kv_cache: Optional[KVCache] = None, cache_offset: int = 0,
                   compute_logits: bool = True, logits_to_keep: int = 0,
                   lora: Optional[nn.Module] = None, lora_dropout: float = 0.0,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None,
+                  layer_callback: Optional[Callable[[int, torch.Tensor],
+                                                    torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (logits [B, L or logits_to_keep, V], or the final hidden
     states, and the cache). Query row i (absolute position cache_offset + i)
@@ -283,7 +285,10 @@ def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
 
     `lora` (the model's `decoder_lora`, without a cache only) adds its
     branch to q/k/v/o; `generator` drives its input dropout (none without
-    one)."""
+    one). `layer_callback(i, hidden)` (the cross-attention adapters)
+    rewrites layer i's hidden states after the self-attention residual,
+    before the MLP's norm (`mtasr_tpu/models/llama.py:524-528`), with or
+    without a cache, and inside the recomputed layer under remat."""
     if lora is not None and kv_cache is not None:
         raise ValueError("the LoRA branch runs without a cache; a cached "
                          "forward takes merged weights (train/lora.py)")
@@ -313,6 +318,8 @@ def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
             cache_offset, lora_layer=lora_layer(lora, idx),
             lora_scale=lora.scale if lora is not None else 1.0,
             generator=generator, lora_dropout=lora_dropout)
+        if layer_callback is not None:
+            hidden = layer_callback(idx, hidden)
         h = rms_norm(hidden, lp.post_attention_layernorm.weight,
                      cfg.rms_norm_eps)
         return hidden + _mlp(lp.mlp, h)

@@ -16,7 +16,15 @@ SOT+CTC (ctc_alpha 0.7) with the separator (hidden 896, LSTM dropout 0.2)
 and two CTC heads of 128265 outputs, trained with PCGrad. `train_batch` is
 a batch shaped like the JAX bench's (`bench.py:108-131`): 10 s of noise a
 row, 24 label positions, two talkers split by <sc> (with `split_speakers`
-also as the per-talker CTC targets)."""
+also as the per-talker CTC targets).
+
+`family` (a key of `FAMILY`) switches on a configuration of the bridge and
+adapter family on the hybrid model (its separator and CTC heads):
+A the refiner, the CTC prompt and ctcaware adapters over CTC-token memory;
+B the raw bridge and adapgatetiny adapters (LoRA r 16) over the separated
+streams; C the softmax bridge and gatetiny adapters over the 50 Hz
+features. The adapters are 512 wide (`cross_attn_dim`), one a decoder
+layer."""
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
@@ -38,12 +46,27 @@ from mtasr_tpu_torch.utils.quantize import quantize_for_serving
 
 SAMPLING_RATE = 16000
 VOCAB_SIZE = 128264
+_ADAPTERS = dict(decoder_cross_attention=True, cross_attn_dim=512)
+FAMILY = {
+    "A": dict(talker_ctc_refine=True, ctc_bridge=True,
+              ctc_bridge_type="ctcprompt",
+              decoder_cross_attention_type="ctcaware",
+              decoder_cross_attention_feature="ctctoken", **_ADAPTERS),
+    "B": dict(ctc_bridge=True, ctc_bridge_type="raw",
+              decoder_cross_attention_type="adapgatetiny",
+              decoder_cross_attention_feature="sep", r_max=16, **_ADAPTERS),
+    "C": dict(ctc_bridge=True, ctc_bridge_type="softmax",
+              decoder_cross_attention_type="gatetiny",
+              decoder_cross_attention_feature="mix", **_ADAPTERS),
+}
 
 
-def config(hybrid: bool = False, **encoder_kw
+def config(hybrid: bool = False, family: Optional[str] = None, **encoder_kw
            ) -> Tuple[SpeechEncoderDecoderConfig, CharTokenizer]:
     """The full-width config (attention mode, or with `hybrid` the hybrid
-    SOT+CTC recipe with 2 talkers' CTC heads) and its tokenizer."""
+    SOT+CTC recipe with 2 talkers' CTC heads; `family` implies it) and its
+    tokenizer."""
+    hybrid = hybrid or family is not None
     tok = CharTokenizer()
     sp = tok.add_special_tokens(instruct=False)
     dec = llama_1b_config(vocab_size=VOCAB_SIZE, bos_token_id=sp.bos_token_id,
@@ -55,19 +78,22 @@ def config(hybrid: bool = False, **encoder_kw
         ctc_alpha=0.7,
         pad_token_id=sp.pad_token_id, sc_token_id=sp.sc_token_id,
         bos_token_id=sp.bos_token_id, eos_token_id=sp.eos_token_id,
-        decoder_start_token_id=sp.bos_token_id)
+        decoder_start_token_id=sp.bos_token_id,
+        **(FAMILY[family] if family else {}))
     return cfg, tok
 
 
 def build(seed: int = 0, device="cuda",
           dtype: torch.dtype = torch.bfloat16, quantize: Optional[str] = None,
-          kv_quant: bool = False, hybrid: bool = False
+          kv_quant: bool = False, hybrid: bool = False,
+          family: Optional[str] = None
           ) -> Tuple[SpeechEncoderDecoderConfig, torch.nn.Module, Transcriber]:
     """(config, model, greedy Transcriber) with weights from `seed`;
     `quantize` ("w8" / "w8a8") quantizes the decoder in place, `kv_quant`
     gives the Transcriber an int8 KV cache; `hybrid` adds the separator
-    and the CTC heads (`Transcriber.transcribe_ctc`)."""
-    cfg, tok = config(hybrid, mask_time_prob=0.0)
+    and the CTC heads (`Transcriber.transcribe_ctc`), `family` a
+    configuration of the bridge and adapter family on them."""
+    cfg, tok = config(hybrid, family, mask_time_prob=0.0)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     model = init_random(cfg, g, device, dtype)
@@ -79,12 +105,14 @@ def build(seed: int = 0, device="cuda",
 
 
 def build_train(seed: int = 0, device="cuda",
-                dtype: torch.dtype = torch.bfloat16, hybrid: bool = False
+                dtype: torch.dtype = torch.bfloat16, hybrid: bool = False,
+                family: Optional[str] = None
                 ) -> Tuple[SpeechEncoderDecoderConfig, torch.nn.Module]:
     """(config, model) for training, attention mode or with `hybrid` the
-    hybrid SOT+CTC recipe: WavLM-Large's default SpecAugment and dropouts,
+    hybrid SOT+CTC recipe (with `family`, a configuration of the bridge and
+    adapter family on it): WavLM-Large's default SpecAugment and dropouts,
     a float32 decoder LoRA (r 16, alpha 32)."""
-    cfg, _ = config(hybrid)
+    cfg, _ = config(hybrid, family)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     model = init_random(cfg, g, device, dtype).train()

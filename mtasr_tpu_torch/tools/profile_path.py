@@ -1,9 +1,9 @@
 """Where the time of one full-width batch goes on the GPU.
 
     python -m mtasr_tpu_torch.tools.profile_path [--batch 8] [--steps 32]
-        [--quantize w8a8] [--kv_quant] [--trace-dir DIR]
+        [--quantize w8a8] [--kv_quant] [--family A|B|C] [--trace-dir DIR]
     python -m mtasr_tpu_torch.tools.profile_path --train [--hybrid]
-        [--batch 16]
+        [--family A|B|C] [--batch 16]
 
 Builds the served model (`full_width.build`; `--quantize` / `--kv_quant`:
 the int8 serving leg), prepares one batch of 6-10 s
@@ -23,11 +23,20 @@ rows, `Trainer`'s step: forward, backward, AdamW), after two warm-up
 steps, timed and profiled the same way. `--hybrid`: the hybrid SOT+CTC
 step of the flagship recipe (`full_width.build_train(hybrid=True)`: the
 separator, two CTC heads, PCGrad's three stages).
+
+`--family` serves (or trains) a configuration of the bridge and adapter
+family (`full_width.FAMILY`, on the hybrid model). Serving adds two
+profiled runs: the encode with the family's switches off on the same
+model (the separator still runs), and the decode steps with the
+adapters' layer hook removed (same memory, same cache); the differences of
+device busy time are the bridge's ms a batch (refiner, bridge, adapter
+memory) and the adapters' ms over the steps, with their shares.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -38,6 +47,7 @@ import torch
 
 from mtasr_tpu_torch.config import GenerationConfig
 from mtasr_tpu_torch.generate import engine
+from mtasr_tpu_torch.models.speech_encoder_decoder import adapter_callback
 from mtasr_tpu_torch.tools import full_width
 
 MAX_NEW = 150
@@ -125,6 +135,9 @@ def main(argv=None) -> None:
                     help="profile one full-width train step")
     ap.add_argument("--hybrid", action="store_true",
                     help="with --train: the hybrid SOT+CTC step with PCGrad")
+    ap.add_argument("--family", choices=sorted(full_width.FAMILY),
+                    default=None, help="a configuration of the bridge and "
+                    "adapter family (full_width.FAMILY)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_path needs a CUDA device")
@@ -133,7 +146,8 @@ def main(argv=None) -> None:
     B = args.batch or 8
     cfg, model, tr = full_width.build(args.seed, "cuda", torch.bfloat16,
                                       quantize=args.quantize,
-                                      kv_quant=args.kv_quant)
+                                      kv_quant=args.kv_quant,
+                                      family=args.family)
     wavs = full_width.waveforms(args.seed, 1, B)[0]
     batch = next(iter(tr._batches(tr._examples(wavs, ""), B)))
     wav = torch.from_numpy(batch.arrays["input_values"]).cuda()
@@ -142,18 +156,22 @@ def main(argv=None) -> None:
     ids, splice = engine.prompt_layout(cfg, B, None, wav.device)
     Lp = ids.shape[1]
 
-    def encode():
-        return engine.encode_maybe_chunked(model, cfg, wav, amask, None)
+    hooks = {}
+
+    def encode(c=cfg):
+        return engine.encode_maybe_chunked(model, c, wav, amask, None)
 
     def prefill(enc):
         S_max = Lp + enc.encoder_hidden_states.shape[1] + MAX_NEW
+        hooks["cb"] = adapter_callback(model, cfg, enc, keep_kv=True)
         return engine._prefill(model, cfg, enc, ids, splice, S_max,
-                               args.kv_quant)
+                               args.kv_quant, hooks["cb"])
 
-    def decode(state, n):
+    def decode(state, n, hook=True):
         cache, last, n_valid, total = state
         return engine._decode(model, cfg, cache, last, n_valid, Lp, total,
-                              torch.bfloat16, gen, n + 1, None)
+                              torch.bfloat16, gen, n + 1, None,
+                              hooks["cb"] if hook else None)
 
     for _ in range(2):
         with torch.inference_mode():
@@ -177,13 +195,39 @@ def main(argv=None) -> None:
                          f"{args.steps} (an eos ended it early)")
     record = {"batch": B, "decode_steps": args.steps,
               "quantize": args.quantize, "kv_quant": args.kv_quant,
+              "family": args.family,
               "device": torch.cuda.get_device_name(0)}
     leg = f" {args.quantize or 'bf16'}{' kv8' if args.kv_quant else ''}"
     for name, wall, busy, top in (("encode", w_enc, b_enc, k_enc),
                                   ("prefill", w_pre, b_pre, k_pre),
                                   ("decode", w_dec, b_dec, k_dec)):
         _report(f"B={B}{leg} {name}", name, wall, busy, top, record)
+    if args.family:
+        family_parts(args, cfg, encode, prefill, decode, enc, b_enc, b_dec,
+                     record)
     print(json.dumps(record), flush=True)
+
+
+def family_parts(args, cfg, encode, prefill, decode, enc, b_enc, b_dec,
+                 record) -> None:
+    """The bridge's and the adapters' device ms (module docstring)."""
+    off = dataclasses.replace(cfg, talker_ctc_refine=False, ctc_bridge=False,
+                              decoder_cross_attention=False)
+    _, b_enc0, _ = profiled(lambda: encode(off))
+    state, _, _ = profiled(lambda: prefill(enc))
+    out, b_dec0, _ = profiled(lambda: decode(state, args.steps, hook=False))
+    if out.steps != args.steps:
+        raise SystemExit(f"decode without adapters ran {out.steps} steps")
+    bridge, adapters = b_enc - b_enc0, b_dec - b_dec0
+    record["family"] = {
+        "leg": args.family, "bridge_ms": bridge,
+        "bridge_share_of_encode": bridge / b_enc,
+        "adapters_ms": adapters, "adapters_ms_per_step": adapters / args.steps,
+        "adapters_share_of_decode": adapters / b_dec}
+    print(f"== family {args.family}: bridge {bridge:.3f} ms a batch "
+          f"({bridge / b_enc:.3f} of encode device time), adapters "
+          f"{adapters / args.steps:.4f} ms a decode step "
+          f"({adapters / b_dec:.3f} of decode device time)", flush=True)
 
 
 def _report(title, name, wall, busy, top, record):
@@ -200,10 +244,11 @@ def train_profile(args) -> None:
     from mtasr_tpu_torch.config import DataConfig, TrainingConfig
     from mtasr_tpu_torch.train.loop import Trainer, step_generator
     B = args.batch or 16
+    hybrid = args.hybrid or args.family is not None
     cfg, model = full_width.build_train(args.seed, "cuda", torch.bfloat16,
-                                        hybrid=args.hybrid)
+                                        hybrid=hybrid, family=args.family)
     tc = TrainingConfig(learning_rate=1e-4, warmup_steps=2, max_steps=1000,
-                        pcgrad=args.hybrid)
+                        pcgrad=hybrid)
     trainer = Trainer(cfg, tc, DataConfig(), model,
                       freeze_kwargs=dict(freeze_decoder=True))
     batch = full_width.train_batch(cfg, B, 10, args.seed)
@@ -222,10 +267,13 @@ def train_profile(args) -> None:
     if trace:
         os.makedirs(args.trace_dir, exist_ok=True)
     _, busy, top = profiled(run, trace, inference=False)
-    record = {"batch": B, "train": True, "hybrid": args.hybrid,
+    record = {"batch": B, "train": True, "hybrid": hybrid,
+              "family": args.family,
               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
               "device": torch.cuda.get_device_name(0)}
-    _report(f"B={B} {'hybrid ' if args.hybrid else ''}train step",
+    _report(f"B={B} {'hybrid ' if hybrid else ''}"
+            f"{'family ' + args.family + ' ' if args.family else ''}train "
+            "step",
             "train_step", wall, busy, top, record)
     print(json.dumps(record), flush=True)
 

@@ -31,6 +31,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from mtasr_tpu_torch.config import SpeechEncoderDecoderConfig, TrainingConfig
+from mtasr_tpu_torch.models.bridges import frame_refiner_forward
 from mtasr_tpu_torch.models.losses import serialized_ctc_loss
 from mtasr_tpu_torch.models.speech_encoder_decoder import (
     bridge_features, ctc_heads, encode_feats, model_forward,
@@ -108,7 +109,14 @@ def _forward(model, cfg, batch, splice_index, deterministic, generator,
 
 def _three_stage(model, cfg, batch, splice_index, generator, shared, rest):
     """(out, shared head gradients [K lists], rest gradients) of the
-    three-stage split (`train_step.py:155-241`)."""
+    three-stage split (`train_step.py:155-241`). The family's parameters
+    (refiner, extractor, adapters) belong to the rest: the total loss
+    reaches them through stage B. A head's CTC is taken on its stream as
+    stage B left it; with the refiner its cotangent goes back through the
+    refiner (recomputed on stage A's outputs, the refiner's parameters
+    held), onto the separated stream and the mixed features, then through
+    stage A. No other output of stage B feeds a head, so the raw bridge's
+    read of the encoder's adapter gives the shared group nothing."""
     feats = encode_feats(model, cfg, batch["input_values"],
                          batch.get("audio_mask"),
                          mask_time_indices=batch.get("mask_time_indices"),
@@ -124,20 +132,32 @@ def _three_stage(model, cfg, batch, splice_index, generator, shared, rest):
         model, cfg, enc, batch["decoder_input_ids"],
         splice_index=splice_index, generator=generator, **_batch_kw(batch))
     g_rest = _grads(out.loss, rest, retain_graph=False)
-    # each head's mean CTC as a function of its separated stream, the heads
+    # each head's mean CTC as a function of its stream, the heads
     # constant: pulled back onto the stream, then through stage A
     hlens = feats.mask_x0.sum(1, dtype=torch.int32)
-    leaves = [h.detach().requires_grad_(True) for h in feats.sep_hidden]
+    leaves = [h.detach().requires_grad_(True) for h in enc.sep_hidden]
     _, per_head = serialized_ctc_loss(
         ctc_heads(model, cfg), leaves, hlens, batch["label_spks"],
         batch["label_spk_lens"], cfg.ctc_blank_id, detach_heads=True)
     heads = per_head.mean(1)
     K = heads.shape[0]
+    refined = None
+    if cfg.talker_ctc_refine:
+        mixed_l = feats.mixed.detach().requires_grad_(True)
+        sep_l = [h.detach().requires_grad_(True) for h in feats.sep_hidden]
+        refined = frame_refiner_forward(
+            model.serilized_refine, sep_l, mixed_l, feats.mask_x0,
+            ctc_heads(model, cfg), cfg.ctc_blank_id)
     head_grads = []
     for i in range(K):
+        last = i == K - 1
         (cot,) = torch.autograd.grad(heads[i], [leaves[i]])
-        head_grads.append(_grads([feats.sep_hidden[i]], shared, [cot],
-                                 retain_graph=i < K - 1))
+        outs, cots = [feats.sep_hidden[i]], [cot]
+        if refined is not None:
+            cots = list(torch.autograd.grad(refined[i], [sep_l[i], mixed_l],
+                                            [cot], retain_graph=not last))
+            outs = [feats.sep_hidden[i], feats.mixed]
+        head_grads.append(_grads(outs, shared, cots, retain_graph=not last))
     return out, head_grads, g_rest
 
 

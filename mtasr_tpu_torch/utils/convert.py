@@ -14,7 +14,9 @@ its `__meta__` r and alpha plain attributes. A quantized tree
 `weight_q8a8` / `weight_q8` and f32 `scale` in a linear's slot) loads as
 well: each such slot of the model becomes a `QuantLinear` first. A
 `talker_ctc` tree's `separator.*` and `serialized_ctc.{k}.ctc_lo.*` keys
-are the port's parameter names as they are.
+are the port's parameter names as they are, and so are the bridge and
+adapter family's (`serilized_refine.*`, `ctc_extractor_concat.*`,
+`cross_att_adap.{i}.*`, its scalars 0-d).
 
 The values may also be torch tensors (`utils/model_io.py` hands over the
 memory-mapped tensors of a model directory, already on their device).
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from mtasr_tpu_torch.config import SpeechEncoderDecoderConfig
+from mtasr_tpu_torch.models.adapters import init_scalars
 from mtasr_tpu_torch.models.layers import QuantLinear
 from mtasr_tpu_torch.models.separator import init_separator
 from mtasr_tpu_torch.models.speech_encoder_decoder import (
@@ -142,14 +145,19 @@ def init_random(cfg: SpeechEncoderDecoderConfig, generator: torch.Generator,
     ~ N(0, 0.02^2), biases ~ N(0, 0.02^2), norm scales and the rel-pos gate
     constants 1; a separator gets the JAX init's distributions
     (`models/separator.py::init_separator`: Xavier projections, the
-    symmetry-breaking bias offsets). `generator` must live on `device`."""
+    symmetry-breaking bias offsets), the cross-attention adapters the JAX
+    init's scalars, rank gates and zero LoRA B factors
+    (`models/adapters.py::init_scalars`). `generator` must live on
+    `device`."""
     with torch.device("meta"):
         model = SpeechEncoderDecoderModel(cfg)
     model = model.to(dtype=dtype).to_empty(device=device)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p.dim() == 1:
-                if name.endswith(".bias"):
+            if p.dim() == 0:
+                p.zero_()               # the adapters' scalars: below
+            elif p.dim() == 1:
+                if name.endswith("bias"):
                     p.normal_(0.0, 0.02, generator=generator)
                 else:
                     p.fill_(1.0)
@@ -159,4 +167,6 @@ def init_random(cfg: SpeechEncoderDecoderConfig, generator: torch.Generator,
                 p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
     if hasattr(model, "separator"):
         init_separator(model.separator, generator)
+    for ad in getattr(model, "cross_att_adap", {}).values():
+        init_scalars(ad, cfg.r_max, cfg.lora_alpha)
     return model.eval()

@@ -30,6 +30,9 @@ from mtasr_tpu_torch.utils import model_io
 from mtasr_tpu_torch.utils.convert import init_random
 from tests.test_composite import SC, tiny_cfg
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 
 def _cfg(hybrid: bool):
     cfg = tiny_cfg(train_mode="hybrid" if hybrid else "attention",

@@ -37,6 +37,10 @@ from mtasr_tpu_torch.cli import finetune_asr as tfinetune
 from mtasr_tpu_torch.cli import inference_asr as tinference
 from mtasr_tpu_torch.config import GenerationConfig
 from mtasr_tpu_torch.generate import engine
+from mtasr_tpu_torch.utils import model_io
+
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
 
 
 class _Stop(Exception):
@@ -197,16 +201,19 @@ def test_inference_cli_matches_jax_on_a_jax_created_dir(mini_dataset,
         open(tmp_path / "j" / "wer").read()
 
 
-def test_unported_flags_and_incompatible_combinations_refuse(tmp_path):
+def test_unported_flags_and_incompatible_combinations_refuse(
+        tmp_path, mini_dataset):
+    """Flags of unported parts raise with their ROADMAP item; incompatible
+    decode flags exit. The bridge and adapter family's flags (item 6) are
+    ported: the create CLI builds adapters, the fine-tune CLI trains with
+    the flags passed onto the config, the inference CLI takes them."""
     common = ["--model_name_or_path", "unused", "--data_dir", "unused",
               "--output_dir", str(tmp_path), "--device", "cpu"]
     for flags, item in ((["--num_beams", "2"], "item 7"),
                         (["--speculative", "ctc"], "item 7"),
                         (["--pipelined"], "item 7"),
                         (["--dp_size", "2"], "item 8"),
-                        (["--tp_size", "2"], "item 8"),
-                        (["--ctc_bridge"], "item 6"),
-                        (["--decoder_cross_attention"], "item 6")):
+                        (["--tp_size", "2"], "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             tinference.main(common + flags)
     for flags in (["--pipelined", "--ctc_decoding"],
@@ -216,9 +223,31 @@ def test_unported_flags_and_incompatible_combinations_refuse(tmp_path):
             tinference.main(common + flags)
     with pytest.raises(NotImplementedError, match="item 8"):
         tfinetune.main(common + ["--dp_size", "4"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcreate.main(["--init_random", "tiny", "--decoder_cross_attention",
-                      "--output_dir", str(tmp_path), "--device", "cpu"])
+    model = str(tmp_path / "fam")
+    tcreate.main(["--init_random", "tiny", "--talker_ctc", "--train_mode",
+                  "hybrid", "--decoder_cross_attention",
+                  "--decoder_cross_attention_type", "gatetiny",
+                  "--output_dir", model, "--device", "cpu"])
+    cfg = model_io.read_config(model)
+    assert cfg.decoder_cross_attention and \
+        cfg.decoder_cross_attention_type == "gatetiny"
+    assert "cross_att_adap.1.gate_logit" in model_io.read_flat(model)
+    for flags in (["--ctc_bridge"], ["--decoder_cross_attention"]):
+        out = _infer(model, mini_dataset, str(tmp_path / flags[0][2:]),
+                     *flags)
+        assert len(out.splitlines()) == 4
+    trainer = tfinetune.main([
+        "--model_name_or_path", model, "--data_dir", mini_dataset,
+        "--output_dir", str(tmp_path / "ft"), "--talker_ctc", "--train_mode",
+        "hybrid", "--ctc_bridge", "--ctc_bridge_type", "raw",
+        "--decoder_cross_attention", "--decoder_cross_attention_type",
+        "gatetiny", "--decoder_cross_attention_feature", "sep",
+        "--per_device_train_batch_size", "2", "--max_duration_in_seconds",
+        "2.0", "--warmup_steps", "0", "--eval_steps", "100", "--save_steps",
+        "100", "--max_steps", "1", "--device", "cpu"])
+    assert trainer.state.step == 1
+    assert trainer.cfg.ctc_bridge and \
+        trainer.cfg.decoder_cross_attention_feature == "sep"
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +344,8 @@ def test_top_p_keeps_every_token_where_the_sum_never_reaches_it(dtype):
 
 
 def test_prepare_examples_match_jax_with_cache_and_pool(mini_dataset,
-                                                        tmp_path):
+                                                        tmp_path,
+                                                        monkeypatch):
     """The Kaldi dir's utterances and their prepared examples (labels,
     prompt ids, lengths; the waveforms when eager, the paths when lazy)
     equal the JAX package's; the JSONL cache is read back under the same
@@ -358,6 +388,8 @@ def test_prepare_examples_match_jax_with_cache_and_pool(mini_dataset,
     upper = DataConfig(max_duration_in_seconds=2.0, do_lower_case=False)
     tpipe.prepare_examples(tu, tt, upper, cache_path=cache)
     assert open(cache).readline() != stamp
+    # the spawned workers take the parent's environment: one thread each
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     assert rows(tpipe.prepare_examples(tu, tt, dc, num_proc=2)) == \
         rows(first)
     assert tpipe.prepare_examples(

@@ -36,6 +36,9 @@ from mtasr_tpu_torch.ops.ctc import (
 from mtasr_tpu_torch.ops.ctc_fused import ctc_loss_from_hidden
 from mtasr_tpu_torch.ops.kernels import ctc as kctc
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
 

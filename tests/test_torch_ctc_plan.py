@@ -1,8 +1,12 @@
 """The CTC kernels' launch plan (`ops/kernels/ctc.py::ctc_plan`), a pure
 function of the lattice: pure Python, no kernel runs."""
 import pytest
+import torch
 
 from mtasr_tpu_torch.ops.kernels import ctc as kc
+
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
 
 
 def _route_ok(S, K, warps, halo):

@@ -18,6 +18,9 @@ import warnings
 import pytest
 import torch
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -1182,3 +1185,100 @@ def test_resume_with_kernels_equals_the_uninterrupted_run(gen, tmp_path,
     for slot in ("mu", "nu"):
         for k, v in oa[slot].items():
             assert torch.equal(oc[slot][k], v), (slot, k)
+
+
+# ---------------------------------------------------------------------------
+# the bridge and adapter family on the card (full widths, 2 + 2 layers)
+# ---------------------------------------------------------------------------
+def _family_model(leg):
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.utils.convert import init_random
+    cfg, _ = full_width.config(family=leg, num_hidden_layers=2,
+                               mask_time_prob=0.0)
+    cfg.decoder.num_hidden_layers = 2
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return cfg, init_random(cfg, g, "cuda", torch.bfloat16)
+
+
+@pytest.mark.parametrize("leg", ["A", "B", "C"])
+def test_family_kept_memory_kv_gives_the_same_logits(gen, leg):
+    """Greedy decoding of a `full_width.FAMILY` configuration through the
+    kernels, from one encoding: the adapters' memory keys and values kept
+    from the prefill give the same logits, bit for bit, as computing them
+    at every step; and a second encoding is bit-equal to the first (the
+    memories are built deterministically)."""
+    from unittest import mock
+
+    from mtasr_tpu_torch.config import GenerationConfig
+    from mtasr_tpu_torch.generate import engine
+    from mtasr_tpu_torch.models.speech_encoder_decoder import (
+        adapter_callback,
+    )
+    from mtasr_tpu_torch.ops import kernels
+    cfg, model = _family_model(leg)
+    wav, amask = _wav_batch()
+    gcfg = GenerationConfig(do_sample=False)
+    with torch.inference_mode():
+        enc = engine.encode_maybe_chunked(model, cfg, wav, amask, None)
+        again = engine.encode_maybe_chunked(model, cfg, wav, amask, None)
+        for f in ("encoder_hidden_states", "encoder_attention_mask",
+                  "acoustic_mem", "acoustic_pad_mask"):
+            assert torch.equal(getattr(enc, f), getattr(again, f)), f
+        ids, splice = engine.prompt_layout(cfg, wav.shape[0], None, "cuda")
+        S_max = ids.shape[1] + enc.encoder_hidden_states.shape[1] + 12
+        runs = []
+        kernels.reset_launch_counts()
+        for keep in (True, False):
+            cb = adapter_callback(model, cfg, enc, keep_kv=keep)
+            cache, last, n_valid, total = engine._prefill(
+                model, cfg, enc, ids, splice, S_max, False, cb)
+            seen = [last.clone()]
+
+            def sample(logits, g, generator, seen=seen):
+                seen.append(logits.clone())
+                return logits.argmax(-1)
+            with mock.patch.object(engine, "_sample_token", sample):
+                engine._decode(model, cfg, cache, last, n_valid,
+                               ids.shape[1], total, torch.bfloat16, gcfg, 12,
+                               None, cb)
+            runs.append(seen)
+    assert kernels.launch_counts()["decode_attention"] > 0
+    assert len(runs[0]) == len(runs[1]) > 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_family_token_memory_on_the_card_equals_the_cpu(gen):
+    """`ctc_token_builder` and `build_multi_ctc_prefix` on crafted paths:
+    the card's segment sums (one-hot products into the Lmax + 1 buckets)
+    against the CPU's within float32 rounding, the masks and ids equal."""
+    from mtasr_tpu_torch.models import bridges
+    from mtasr_tpu_torch.models.ctc_head import CTCHead
+    V = 8
+    head = CTCHead(V, V)
+    with torch.no_grad():
+        head.ctc_lo.weight.copy_(torch.eye(V) * 10)
+        head.ctc_lo.bias.zero_()
+    paths = torch.randint(0, V, (2, 5, 300), generator=torch.Generator()
+                          .manual_seed(0))
+    paths[:, 1] = V - 1                      # an all-blank row
+    sep = [torch.eye(V)[p] + 0.05 * torch.randn(p.shape + (V,),
+           generator=torch.Generator().manual_seed(k))
+           for k, p in enumerate(paths)]
+    valid = torch.arange(300)[None] < torch.tensor([300, 300, 200, 9, 1])[
+        :, None]
+    cpu = bridges.ctc_token_builder(sep, valid, [head, head], V - 1, 64)
+    hc = head.cuda()
+    card = bridges.ctc_token_builder([s.cuda() for s in sep], valid.cuda(),
+                                     [hc, hc], V - 1, 64)
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-5, atol=1e-6)
+    assert torch.equal(card[1].cpu(), cpu[1])
+    torch.testing.assert_close(card[2].cpu(), cpu[2], rtol=1e-5, atol=1e-6)
+    assert bool(cpu[1][1].all()) and not bool(cpu[1][0].any())
+    ids = [p[:, ::5] for p in paths]
+    table = torch.randn(V, 16)
+    got = bridges.build_multi_ctc_prefix([i.cuda() for i in ids],
+                                         table.cuda(), V - 1, 40)
+    for g, r in zip(got, bridges.build_multi_ctc_prefix(ids, table, V - 1,
+                                                        40)):
+        assert torch.equal(g.cpu(), r)

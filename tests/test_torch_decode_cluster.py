@@ -4,8 +4,13 @@ row, kv head)'s cache. Pure Python: the card runs what they choose
 (`tests/test_torch_cuda.py`)."""
 import itertools
 
+import torch
+
 from mtasr_tpu_torch.ops.kernels import decode_attention as da
 from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
 
 
 def test_cluster_size_covers_the_card_and_gives_every_block_a_key():

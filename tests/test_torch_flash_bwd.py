@@ -24,6 +24,9 @@ from mtasr_tpu.ops.pallas.flash_attention import (
 )
 from mtasr_tpu_torch.ops.kernels import flash_attention as fa
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=2e-5)
 
 CASES = {   # B, T, S, Hq, Hkv, D, bias, kv_lens, block

@@ -6,6 +6,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from mtasr_tpu import config as jconfig
 from mtasr_tpu.api import Transcriber as JaxTranscriber
@@ -18,6 +19,9 @@ from mtasr_tpu_torch.data import audio as taudio
 from mtasr_tpu_torch.data import tokenizer as ttok
 from mtasr_tpu_torch.utils.wer import clean_decoded_text
 from tests.test_composite import tiny_cfg
+
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
 
 
 def _assert_fields_equal(port, ref):

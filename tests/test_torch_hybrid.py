@@ -74,6 +74,9 @@ from mtasr_tpu_torch.train.train_step import (
 from mtasr_tpu_torch.utils.convert import load_flat
 from tests.test_composite import make_batch, tiny_cfg
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 LOSS_RTOL = 1e-5
 GNORM_RTOL = 1e-4
 LR = 1e-3

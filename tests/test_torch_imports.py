@@ -5,16 +5,27 @@ port's own config and tokenizer, then quantized (w8a8, int8 KV cache), and
 takes a train step through `Trainer` (which ends with a checkpoint), saves
 and reloads a model directory through the port's own safetensors I/O with
 the `safetensors` package blocked too, then a hybrid SOT+CTC model through
-a PCGrad `Trainer` step and `transcribe_ctc`, and checks that no kernel was
-launched (CPU tensors take the plain versions). No file of the port, and not
+a PCGrad `Trainer` step and `transcribe_ctc`, then a model of the bridge and
+adapter family through `generate`, and checks that no kernel was launched
+(CPU tensors take the plain versions). No file of the port, and not
 `chip_smoke.py`, imports jax, the JAX package or `safetensors`, and
-`transformers` is imported only inside `HFTokenizer`."""
+`transformers` is imported only inside `HFTokenizer`. Every port test file
+pins torch to one intra-op thread."""
+import os
 import pathlib
 import re
 import subprocess
 import sys
 
+import torch
+
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# a subprocess's torch starts one intra-op thread per core unless told:
+# under the suite's workers that oversubscribes the cores many times over
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
 _SCRIPT = r"""
 import os, sys
@@ -114,6 +125,17 @@ streams = Transcriber(hcfg, model, tok, dc=dc).transcribe_ctc(
     [wav[0].numpy()], max_out_len=5)
 assert len(streams) == 1 and len(streams[0]) == 2
 assert set(kernels.launch_counts().values()) == {0}, kernels.launch_counts()
+# the bridge and adapter family: refiner, CTC prompt, CTC-token memory
+fcfg = dataclasses.replace(hcfg, talker_ctc_refine=True, ctc_bridge=True,
+                           ctc_bridge_type="ctcprompt",
+                           decoder_cross_attention=True,
+                           decoder_cross_attention_type="ctcaware",
+                           decoder_cross_attention_feature="ctctoken",
+                           cross_attn_dim=8)
+model = init_random(fcfg, g, "cpu", torch.float32)
+out = generate(model, fcfg, wav, amask, max_new_tokens=3)
+assert out.sequences.shape == (2, 3)
+assert set(kernels.launch_counts().values()) == {0}, kernels.launch_counts()
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m]}
 assert not loaded & {"jax", "mtasr_tpu", "safetensors", "transformers"}, \
     loaded
@@ -123,7 +145,8 @@ print("NO_JAX_OK")
 
 def test_port_runs_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, **ONE_THREAD})
     assert res.returncode == 0, res.stderr[-4000:]
     assert "NO_JAX_OK" in res.stdout
 
@@ -167,3 +190,20 @@ def test_transformers_is_imported_only_inside_hftokenizer():
     cls = src[src.index("class HFTokenizer"):]
     cls = cls[:cls.index("\ndef ") if "\ndef " in cls else len(cls)]
     assert "from transformers import" in cls
+
+
+def test_every_port_test_file_pins_one_thread():
+    """Each `tests/test_torch_*.py` sets torch to one intra-op thread at
+    import, and every subprocess a port test starts gets OMP_NUM_THREADS=1:
+    with the default of a thread per core, the suite's xdist workers
+    oversubscribe the cores and the port's tests ran about 4x slower."""
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(files) > 20
+    pin = re.compile(r"^torch\.set_num_threads\(1\)$", re.M)
+    assert [f.name for f in files if not pin.search(f.read_text())] == []
+    spawns = re.compile(r"subprocess\.(run|Popen|call|check_output)\(|"
+                        r"get_context\(\"spawn\"\)|num_proc=[2-9]")
+    for f in files:
+        src = f.read_text()
+        if spawns.search(src.replace("spawns = re.compile", "")):
+            assert "OMP_NUM_THREADS" in src, f.name

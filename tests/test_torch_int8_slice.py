@@ -38,6 +38,9 @@ from mtasr_tpu_torch.utils.convert import load_flat
 from mtasr_tpu_torch.utils.quantize import quantize_for_serving
 from tests.test_torch_quantize import int8_cfg
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 _ROUTES = ("decode_attention_int8", "decode_attention_int8_chunk")
 
 

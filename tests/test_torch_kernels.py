@@ -20,6 +20,9 @@ from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
 from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
 from mtasr_tpu_torch.ops.kernels import flash_attention as fa
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def pallas_calls(monkeypatch):

@@ -44,6 +44,9 @@ from mtasr_tpu_torch.utils.convert import init_random, load_flat
 from mtasr_tpu_torch.utils.quantize import quantize_for_serving
 from tests.test_composite import tiny_cfg
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 INSTRUCT_IDS = dict(bosp_token_id=52, eosp_token_id=53, boss_token_id=54,
                     eoss_token_id=55, bosr_token_id=56, eosr_token_id=57)
 
@@ -150,11 +153,14 @@ def test_config_json_round_trips(i):
 
 
 def test_unported_switches_raise_with_their_item():
+    """Unported switches raise with their ROADMAP item; the adapters (item
+    6, ported) now build from a config read back from its JSON."""
     cfg = tconfig.SpeechEncoderDecoderConfig.from_json(
         tiny_cfg(train_mode="attention", decoder_cross_attention=True,
                  decoder_cross_attention_type="gatetiny").to_json())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        SpeechEncoderDecoderModel(cfg)
+    model = SpeechEncoderDecoderModel(cfg)
+    assert len(model.cross_att_adap) == cfg.decoder.num_hidden_layers
+    assert model.cross_att_adap["0"].gate_logit.dim() == 0
     bad = tconfig.SpeechEncoderDecoderConfig.from_json(
         tiny_cfg(ctc_bridge_type="nope").to_json())
     with pytest.raises(ValueError, match="ctc_bridge_type"):

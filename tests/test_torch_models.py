@@ -22,6 +22,9 @@ from mtasr_tpu_torch.utils.convert import load_flat
 from tests.test_composite import tiny_cfg
 from tests.test_torch_kernels import pallas_calls  # noqa: F401 (fixture)
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 
 # JAX conv0 engages only for conv_dim[0] % 128 == 0, S % 128 == 0 and
 # S >= 768 (conv_frontend.py:56-73): conv_dim (128, 8) with S = 1280.

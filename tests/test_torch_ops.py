@@ -20,6 +20,9 @@ from mtasr_tpu_torch.ops import norms as tn
 from mtasr_tpu_torch.ops import relpos as tr
 from mtasr_tpu_torch.ops import rope as trope
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

@@ -28,6 +28,9 @@ from mtasr_tpu_torch.utils import quantize as tquant
 from mtasr_tpu_torch.utils.convert import load_flat
 from tests.test_composite import tiny_cfg
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 
 def _rand(shape, seed, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape)

@@ -22,6 +22,9 @@ from mtasr_tpu_torch.models.separator import (
 )
 from mtasr_tpu_torch.ops.lstm import lstm, lstm_scan, stacked_lstm
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 GRAD_REL = 1e-4
 

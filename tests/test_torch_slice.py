@@ -23,8 +23,11 @@ from mtasr_tpu_torch.models.speech_encoder_decoder import (
     SpeechEncoderDecoderModel,
 )
 from mtasr_tpu_torch.ops import kernels
-from mtasr_tpu_torch.utils.convert import load_flat
+from mtasr_tpu_torch.utils.convert import init_random, load_flat
 from tests.test_composite import tiny_cfg
+
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
 
 INSTRUCT_IDS = dict(bosp_token_id=52, eosp_token_id=53, boss_token_id=54,
                     eoss_token_id=55, bosr_token_id=56, eosr_token_id=57)
@@ -147,10 +150,14 @@ def test_unported_routes_raise():
         tt.transcribe_ctc(wav)          # no CTC heads on this model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Transcriber.from_pretrained("exp/model", tp_size=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpeechEncoderDecoderModel(_port(tiny_cfg(train_mode="hybrid",
-                                                 talker_ctc=True,
-                                                 ctc_bridge=True)))
+    # the raw CTC bridge (ROADMAP item 6) is ported: it builds and decodes
+    bridged = _port(tiny_cfg(train_mode="hybrid", talker_ctc=True,
+                             ctc_bridge=True))
+    model = init_random(bridged, torch.Generator().manual_seed(0), "cpu",
+                        torch.float32)
+    out = engine.generate(model, bridged, torch.zeros(1, 4000), None,
+                          max_new_tokens=2)
+    assert out.sequences.shape == (1, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.generate(tt.model, tt.cfg, torch.zeros(1, 4000), None,
                         gen=tconfig.GenerationConfig(speculative="ctc"))

@@ -57,6 +57,9 @@ from mtasr_tpu_torch.train.optimizer import is_no_decay, make_optimizer
 from mtasr_tpu_torch.train.train_step import make_eval_step, make_train_step
 from tests.test_composite import make_batch, tiny_cfg
 
+# one intra-op thread: the suite's workers share the cores
+torch.set_num_threads(1)
+
 # f32 on the CPU; the two sides sum in other orders (XLA vs ATen)
 LOSS_RTOL = 1e-5
 GNORM_RTOL = 1e-4
@@ -473,12 +476,13 @@ def test_trainer_trains_and_evaluates(tmp_path):
 
 def test_pcgrad_with_ctc_heads_raises():
     """PCGrad with CTC heads builds a step (hybrid training is ported,
-    `tests/test_torch_hybrid.py`); a model with the CTC refiner, which is
-    not, is refused with its ROADMAP item."""
+    `tests/test_torch_hybrid.py`); a model with the CTC refiner (ROADMAP
+    item 6, ported) now builds, with the refiner at the 50 Hz width."""
     cfg = dataclasses.replace(_port(_cfg()), talker_ctc=True,
                               train_mode="hybrid")
     assert callable(make_train_step(cfg, tconfig.TrainingConfig(pcgrad=True),
                                     None))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        SpeechEncoderDecoderModel(dataclasses.replace(cfg,
-                                                      talker_ctc_refine=True))
+    model = SpeechEncoderDecoderModel(dataclasses.replace(
+        cfg, talker_ctc_refine=True))
+    d50 = cfg.encoder.hidden_size
+    assert model.serilized_refine.mlp["0"].in_features == 2 * d50 + 1
