@@ -5,6 +5,9 @@
     python3 chip_smoke.py --only-family    # phases 1, 2 and 14 alone; its
                                            # last line {"ok": true, "only":
                                            # "family"}
+    python3 chip_smoke.py --only-decoding  # phases 1, 2 and 15 alone; its
+                                           # last line {"ok": true, "only":
+                                           # "decoding"}
 
 Phases, one line each, any failure exits non-zero:
 
@@ -112,7 +115,29 @@ Phases, one line each, any failure exits non-zero:
     FAMILY_TRAIN_STEPS timed steps with their launch counts (#1-#3,
     #8-#12), ms/step, peak memory and a falling loss; (C, bf16) the
     softmax bridge and gatetiny adapters over the 50 Hz features: one
-    `transcribe` call, the logits kernels vs plain within LOGITS_TOL.
+    `transcribe` call, the logits kernels vs plain within LOGITS_TOL;
+15. the decoding variants, at full width on 8 padded 6-10 s waveforms,
+    150 new tokens, each leg with the launch counts set to 0 just before
+    it and read just after, every reading printed before any is gated:
+    (A) beam search, bf16, phase 4's model: two `transcribe(num_beams=4)`
+    calls (#4 exactly 16 x steps), the RTFx beside greedy's, W = 1
+    bit-identical to greedy on the same batch, the log-probs of the
+    prefill and the first GATE_STEPS steps kernels vs plain (the plain run
+    teacher-forced) within LOGITS_TOL, and over 150 tokens the two runs'
+    candidates parting only at a near tie (TIE_TOL), rows that never part
+    giving the same best beam; (B) beam search, w8a8 + int8 KV, one call
+    (#6 exactly 16 x steps), finite scores, W = 1 equal to int8 greedy;
+    (C) speculative decoding (spec_k 4), bf16, on the hybrid model, from
+    the CTC heads' drafts (through `Transcriber` with
+    `GenerationConfig(speculative="ctc")`), oracle drafts (greedy's own
+    tokens) and mixed drafts (oracle in even rows, pads in odd ones,
+    `spec_cache_factor` 1.0: holes and the fallback): #5 exactly 16 x
+    verify steps and #4 16 x fallback steps, #5 held against its plain
+    version on every verify call's own inputs, the tokens equal to
+    greedy's up to the first near tie, the ms an emitted token against
+    greedy's; (D) the same, w8a8 + int8 KV, oracle and mixed drafts
+    through #7 and #6; then #5 (beside SDPA) and #7 in a CUDA graph on a
+    verify call's inputs; the phase's wall time.
 
 Every kernel's record carries its error, its time, its plain version's
 time, the least time the card could take (`bound_ms`, from the bytes the
@@ -2014,6 +2039,421 @@ def family_phase(torch, card: str, launches, rtfx_bf16: float) -> None:
     say(f"family: phase wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# -- phase 15: the decoding variants ---------------------------------------------
+BEAMS = 4          # beam width of phase 15's beam legs
+SPEC_K = 4         # draft tokens a verify step (the GenerationConfig default)
+# a near tie: where two decodes of the same batch part, greedy's top-1 minus
+# top-2 logit at that step (for beam search, the smallest gap between
+# neighbours of the top 2W + 1 joint candidate scores) below this. Sound
+# kernels part only there; #5 taking invalid slots as valid parts elsewhere
+# (PERF.md, Findings)
+TIE_TOL = 0.125
+
+
+def decoding_requests():
+    """Phase 15's two requests of BATCH padded 6-10 s waveforms."""
+    from mtasr_tpu_torch.tools import full_width
+    return full_width.waveforms(SEED + 15, 2, BATCH, (6.0, 10.0))
+
+
+def counted(torch, fn):
+    """(fn(), launch counts, wall s) with the counts set to 0 just before
+    and read just after."""
+    from mtasr_tpu_torch.ops import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts(), time.perf_counter() - t0
+
+
+def greedy_with_gaps(torch, model, cfg, wav, amask, kv_quant):
+    """Greedy tokens [B, MAX_NEW] (CPU), the top-1 minus top-2 logit of
+    each step [B, MAX_NEW] (CPU), ms per emitted token, emitted tokens."""
+    from unittest import mock
+
+    from mtasr_tpu_torch.config import GenerationConfig
+    from mtasr_tpu_torch.generate import engine
+    gaps = []
+
+    def sample(logits, gen, generator):
+        top = logits.float().topk(2, -1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        return logits.argmax(-1)
+    with mock.patch.object(engine, "_sample_token", sample):
+        out, _, wall = counted(torch, lambda: engine.generate(
+            model, cfg, wav, amask, max_new_tokens=MAX_NEW,
+            gen=GenerationConfig(do_sample=False, kv_quant=kv_quant)))
+    gap = torch.full(out.sequences.shape, float("inf"))
+    gap[:, :len(gaps)] = torch.stack(gaps, 1).cpu()
+    n = int(out.lengths.sum())
+    return out.sequences.cpu(), gap, 1e3 * wall / n, n
+
+
+def parted(torch, got, ref, gap):
+    """Each row's first position where `got` and `ref` differ and the gap
+    there: (rows that part, the largest gap where one parts)."""
+    rows, worst = 0, 0.0
+    for r in range(ref.shape[0]):
+        diff = (got[r] != ref[r]).nonzero()
+        if len(diff):
+            rows += 1
+            worst = max(worst, float(gap[r, int(diff[0])]))
+    return rows, worst
+
+
+@contextlib.contextmanager
+def checked_chunks(torch, name, seen):
+    """Every call of the chunk kernel `name` from the decoder is held
+    against its plain version on the same inputs, in the call; `seen`
+    gets the worst error over its tolerance, the calls, the calls over,
+    and the last call's arguments (copies, for the graph timing)."""
+    from unittest import mock
+
+    import mtasr_tpu_torch.models.llama as llama_mod
+    from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    real = getattr(llama_mod, name)
+    plain = getattr(dc, name + "_plain")
+    seen.update(calls=0, over=0, err=0.0, tol=0.0, ratio=0.0, args=None)
+
+    def check(*args):
+        out = real(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        if name == "decode_attention_chunk":
+            tol = ulps_tol(ref.float(), 4)
+        else:
+            tol = ulps_tol(ref.float(), 1) + p_step(di, *args)
+        err = float((out.float() - ref.float()).abs().max())
+        seen["calls"] += 1
+        if not math.isfinite(err) or err > tol:
+            seen["over"] += 1
+        if not math.isfinite(err) or err / tol >= seen["ratio"]:
+            seen.update(err=err, tol=tol, ratio=err / tol)
+        seen["args"] = args
+        return out
+    with mock.patch.object(llama_mod, name, check):
+        yield
+    seen["args"] = [a.clone() for a in seen["args"]] if seen["args"] \
+        else None
+
+
+def spec_leg(torch, card, cfg, model, tr, wavs, wav, amask, source,
+             kv_quant, greedy, launches, over, verify):
+    """Speculative decoding of one batch from `source` drafts (module
+    docstring, phase 15), first with every chunk-kernel call checked and
+    the launches counted, then timed alone."""
+    from unittest import mock
+
+    from mtasr_tpu_torch.api import Transcriber
+    from mtasr_tpu_torch.config import GenerationConfig
+    from mtasr_tpu_torch.generate import speculative
+    seqs, gap, greedy_ms, _ = greedy
+    int8 = "int8" if kv_quant else "bf16"
+    chunk = "decode_attention_int8_chunk" if kv_quant else \
+        "decode_attention_chunk"
+    gen = GenerationConfig(do_sample=False, speculative="ctc", spec_k=SPEC_K,
+                           kv_quant=kv_quant,
+                           spec_cache_factor=1.0 if source == "mixed" else 2.0)
+    draft = None
+    if source != "ctc":
+        draft = seqs.clone().cuda()
+        if source == "mixed":
+            draft[1::2] = cfg.pad_token_id
+    got = []
+    real = speculative.generate_speculative
+
+    def run():
+        if source != "ctc":
+            return real(model, cfg, wav, amask, gen=gen,
+                        max_new_tokens=MAX_NEW, draft_tokens=draft)
+        # the CTC drafts through the user's entry point: a Transcriber
+        # whose generation config asks for them (its batch is `wav`)
+        with mock.patch.object(speculative, "generate_speculative",
+                               lambda *a, **kw: got.append(real(*a, **kw))
+                               or got[-1]):
+            texts = Transcriber(cfg, model, tr.tokenizer, gen=gen,
+                                dc=tr.dc).transcribe(
+                wavs, batch_size=BATCH, max_new_tokens=MAX_NEW)
+        if len(texts) != BATCH:
+            fail(f"spec {source}: transcribe returned {len(texts)} texts")
+        return got[-1]
+
+    seen = {}
+    with checked_chunks(torch, chunk, seen):
+        (out, st), counts, _ = counted(torch, run)
+    for name, n in counts.items():
+        launches[name] += n
+    # the prefill of 64 positions takes plain attention
+    expect = expected_counts(cfg, [st.fallback_steps], False, kv_quant)
+    expect[chunk] = cfg.decoder.num_hidden_layers * st.spec_steps
+    (out2, st2), _, wall = counted(torch, run)
+    toks = out.sequences.cpu()
+    rows, worst = parted(torch, toks, seqs, gap)
+    n = int(out2.lengths.sum())
+    say(f"spec[{int8} {source}]: {st.spec_steps} verify + "
+        f"{st.fallback_steps} fallback steps, {st.accepted_drafts} accepted "
+        f"drafts of {int(st.emitted.sum())} tokens "
+        f"({st.accepted_drafts / max(int(st.emitted.sum()), 1):.3f}; "
+        f"{int(st.emitted.sum()) / BATCH / max(st.spec_steps, 1):.2f} "
+        f"tokens a row a verify step), launches {counts}")
+    say(f"spec[{int8} {source}]: {chunk} against its plain version on its "
+        f"{seen['calls']} verify calls: worst max_abs_err {seen['err']:.6g} "
+        f"(tol {seen['tol']:.6g}), {seen['over']} over")
+    say(f"spec[{int8} {source}]: tokens against greedy: {rows} of "
+        f"{toks.shape[0]} rows part, the largest top-1 minus top-2 gap where "
+        f"one parts {worst:.5g} (TIE_TOL {TIE_TOL}); {1e3 * wall / n:.3f} "
+        f"ms an emitted token ({n} in {wall:.3f} s) against greedy's "
+        f"{greedy_ms:.3f} B={BATCH} [{card}]")
+    if counts != expect:
+        over.append(f"spec {int8} {source}: launches {counts} != {expect}")
+    if seen["over"] or seen["calls"] != cfg.decoder.num_hidden_layers * \
+            st.spec_steps:
+        over.append(f"spec {int8} {source}: {chunk} {seen['over']} of "
+                    f"{seen['calls']} calls over tolerance")
+    if worst >= TIE_TOL:
+        over.append(f"spec {int8} {source}: tokens part from greedy at a "
+                    f"gap of {worst} >= TIE_TOL {TIE_TOL}")
+    if st2.spec_steps != st.spec_steps or not torch.equal(
+            out2.sequences.cpu(), toks):
+        over.append(f"spec {int8} {source}: a second run gave other steps "
+                    "or tokens")
+    if source == "mixed" and not st.fallback_steps:
+        over.append(f"spec {int8} mixed: no fallback step")
+    if seen["args"] is not None and source != "ctc":
+        verify.setdefault(chunk, seen["args"])
+
+
+def verify_times(torch, card, verify, records) -> None:
+    """#5 and #7 in a CUDA graph on a verify call's own inputs, #5 beside
+    SDPA on them; into the kernels' records (`verify_*`) when kept."""
+    import torch.nn.functional as F
+    from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+    from mtasr_tpu_torch.tools.timing import graph_ms
+    for name, args in verify.items():
+        q, mc = args[0], args[-1]
+        B, L, Hq, D = q.shape
+        kind = "int8" if name.endswith("int8_chunk") else "bf16"
+        b_ms, b_by = bound(nbytes(*args, q), attention_ops(
+            D, Hq * int(mc.sum())), kind)
+        g = graph_ms(lambda: getattr(dc, name)(*args))
+        plain = graph_ms(lambda: getattr(dc, name + "_plain")(*args))
+        lib = None
+        if kind == "bf16":
+            kc, vc = args[1], args[2]
+            S, Hkv = kc.shape[1], kc.shape[2] // D
+            kh, vh = (t.view(B, S, Hkv, D).transpose(1, 2) for t in (kc, vc))
+            lib = graph_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kh, vh, attn_mask=mc[:, None],
+                enable_gqa=True))
+        say(f"kernel {name} at the verify's shape {tuple(q.shape)} S_max "
+            f"{mc.shape[-1]}: in a CUDA graph kernel {fmt_ms(g)} plain "
+            f"{fmt_ms(plain)} library (SDPA) {fmt_ms(lib)} bound "
+            f"{b_ms:.4f} ms ({b_by}; {b_ms / g:.3f} of it) [{card}]")
+        if records is not None and name in records:
+            records[name].update(verify_graph_ms=g, verify_plain_graph_ms=plain,
+                                 verify_library_graph_ms=lib,
+                                 verify_bound_ms=b_ms,
+                                 verify_shape=list(q.shape) + [mc.shape[-1]])
+
+
+def recorded_beam(torch, model, cfg, wav, amask, kv_quant, plain=False,
+                  forced=None, max_new=MAX_NEW):
+    """beam_generate at BEAMS beams, recording each step's log-probs less
+    their row mean (the prefill and the first GATE_STEPS steps), each
+    step's top 2W + 1 joint candidates and the bookkeeping's states. With
+    `forced` (another run's record) the bookkeeping returns that run's
+    states: the run follows its tokens. `plain`: the kernels' plain
+    versions."""
+    from unittest import mock
+
+    from mtasr_tpu_torch.generate import beam
+    rec = {"logp": [], "top": [], "state": []}
+    real_init, real_step = beam.beam_state_init, beam.beam_state_step
+
+    def note(logp, flat):
+        if len(rec["logp"]) <= GATE_STEPS:
+            lp = logp.reshape(-1, logp.shape[-1])
+            rec["logp"].append(lp - lp.mean(-1, keepdim=True))
+        v, i = flat.topk(2 * BEAMS + 1, -1)
+        rec["top"].append((v.cpu(), i.cpu()))
+
+    def init(logp0, *a):
+        note(logp0, logp0)
+        out = real_init(logp0, *a)
+        rec["state"].append(out)
+        return forced["state"][0] if forced else out
+
+    def step(t, logp, state, *a):
+        note(logp, (state[1][:, :, None] + logp).reshape(logp.shape[0], -1))
+        out = real_step(t, logp, state, *a)
+        rec["state"].append(out)
+        return forced["state"][t] if forced else out
+    with plain_versions(plain), \
+            mock.patch.object(beam, "beam_state_init", init), \
+            mock.patch.object(beam, "beam_state_step", step):
+        out = beam.beam_generate(model, cfg, wav, amask, num_beams=BEAMS,
+                                 max_new_tokens=max_new, kv_quant=kv_quant)
+    return out, rec
+
+
+def beam_parted(torch, k_out, k_rec, p_out, p_rec):
+    """Rows whose candidates (the top 2W joint scores' order) part between
+    two beam runs, and the largest smallest-neighbour gap of the top
+    2W + 1 scores at the step where one parts; a row that never parts must
+    give the same best beam."""
+    rows, worst, same = 0, 0.0, True
+    W2 = 2 * BEAMS
+    for r in range(k_out.sequences.shape[0]):
+        for (kv, ki), (_, pi) in zip(k_rec["top"], p_rec["top"]):
+            if not torch.equal(ki[r, :W2], pi[r, :W2]):
+                rows += 1
+                worst = max(worst, float((kv[r, :-1] - kv[r, 1:]).min()))
+                break
+        else:
+            same &= torch.equal(k_out.sequences[r, 0], p_out.sequences[r, 0])
+    return rows, worst, same
+
+
+def beam_legs(torch, card, cfg, model, tr, requests, wav, amask, greedy,
+              kv_quant, rtfx_bf16, launches, over):
+    """(A) or (B) of phase 15 (module docstring)."""
+    from unittest import mock
+
+    import mtasr_tpu_torch.api as api_mod
+    from mtasr_tpu_torch.generate import beam
+    leg = "int8" if kv_quant else "bf16"
+    outs, walls, audio = [], [], []
+    real = api_mod.beam_generate
+
+    def calls():
+        for wavs in requests:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            texts = tr.transcribe(wavs, batch_size=BATCH,
+                                  max_new_tokens=MAX_NEW, num_beams=BEAMS)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            audio.append(sum(len(w) for w in wavs) / SR)
+            if len(texts) != BATCH or not all(isinstance(t, str)
+                                              for t in texts):
+                fail(f"beam {leg}: transcribe returned a malformed result")
+    with mock.patch.object(api_mod, "beam_generate",
+                           lambda *a, **kw: outs.append(real(*a, **kw))
+                           or outs[-1]):
+        _, counts, _ = counted(torch, calls)
+    for name, n in counts.items():
+        launches[name] += n
+    steps = [o.steps for o in outs]
+    expect = expected_counts(cfg, steps, False, kv_quant)
+    finite = all(bool(torch.isfinite(o.scores).all()) for o in outs)
+    rtfx = audio[-1] / walls[-1]
+    say(f"beam[{leg}]: {len(requests)} transcribe calls x {BATCH} "
+        f"waveforms at W = {BEAMS}, walls {[round(w, 3) for w in walls]} s, "
+        f"steps {steps}, launches {counts}, scores finite {finite}; RTFx "
+        f"{rtfx:.2f} (the last call) against greedy's {rtfx_bf16:.2f} "
+        f"B={BATCH} [{card}]")
+    if counts != expect:
+        over.append(f"beam {leg}: launches {counts} != {expect}")
+    if not finite:
+        over.append(f"beam {leg}: non-finite scores")
+
+    one, _, _ = counted(torch, lambda: beam.beam_generate(
+        model, cfg, wav, amask, num_beams=1, max_new_tokens=MAX_NEW,
+        kv_quant=kv_quant))
+    same = torch.equal(one.sequences[:, 0].cpu(), greedy[0])
+    say(f"beam[{leg}]: W = 1 against greedy on the same batch: "
+        f"{'bit-identical' if same else 'DIFFERENT'} tokens")
+    if not same:
+        over.append(f"beam {leg}: W = 1 tokens differ from greedy's")
+    if kv_quant:
+        return
+
+    # kernels against plain: the first steps' log-probs, teacher-forced
+    k_out, k_rec = recorded_beam(torch, model, cfg, wav, amask, kv_quant,
+                                 max_new=GATE_STEPS + 1)
+    _, p_rec = recorded_beam(torch, model, cfg, wav, amask, kv_quant,
+                             plain=True, forced=k_rec,
+                             max_new=GATE_STEPS + 1)
+    rel = [float((a.float() - b.float()).norm() / b.float().norm())
+           for a, b in zip(k_rec["logp"], p_rec["logp"])]
+    say(f"beam[bf16]: kernels vs plain, log-probs less their row mean, "
+        f"rel_l2 at the prefill and steps 1-{GATE_STEPS} (plain run "
+        f"teacher-forced): {[round(x, 5) for x in rel]} (tol {LOGITS_TOL})")
+    if len(rel) != GATE_STEPS + 1 or not all(
+            math.isfinite(x) and x <= LOGITS_TOL for x in rel):
+        over.append(f"beam bf16: log-probs rel_l2 {rel} over {LOGITS_TOL}")
+    # and free: the best beam's tokens equal up to the first near tie
+    k_out, k_rec = recorded_beam(torch, model, cfg, wav, amask, kv_quant)
+    p_out, p_rec = recorded_beam(torch, model, cfg, wav, amask, kv_quant,
+                                 plain=True)
+    rows, worst, same = beam_parted(torch, k_out, k_rec, p_out, p_rec)
+    say(f"beam[bf16]: kernels vs plain over {MAX_NEW} tokens: candidates "
+        f"part in {rows} of {BATCH} rows, the largest neighbour gap where "
+        f"they part {worst:.5g} (TIE_TOL {TIE_TOL}); rows that never part "
+        f"give the same best beam: {same}")
+    if worst >= TIE_TOL or not same:
+        over.append(f"beam bf16: kernels vs plain part at a gap of {worst} "
+                    f"(TIE_TOL {TIE_TOL}) or a row that never parts gave "
+                    "another best beam")
+
+
+def decoding_phase(torch, card: str, launches, records, rtfx_bf16,
+                   bf16=None) -> None:
+    """Phase 15 (module docstring): beam search and speculative decoding
+    at full width, each leg with the launch counts set to 0 just before it
+    and read just after; every reading printed before any is gated.
+    `bf16`: a list holding phase 4's (config, model, Transcriber), if
+    still built (taken out of it, so that it is freed after leg A)."""
+    from mtasr_tpu_torch.tools import full_width
+    t_phase = time.perf_counter()
+    requests = decoding_requests()
+    wavs = requests[-1]
+    over, verify = [], {}
+
+    # (A) beam, bf16, phase 4's model
+    cfg, model, tr = bf16.pop() if bf16 else \
+        full_width.build(SEED, "cuda", torch.bfloat16)
+    wav, amask = one_batch(torch, tr, wavs)
+    greedy = greedy_with_gaps(torch, model, cfg, wav, amask, False)
+    beam_legs(torch, card, cfg, model, tr, requests, wav, amask, greedy,
+              False, rtfx_bf16, launches, over)
+    del cfg, model, tr
+    torch.cuda.empty_cache()
+
+    # (B) beam and (D) speculative, int8: w8a8 decoder + int8 KV cache
+    cfg, model, tr = full_width.build(SEED, "cuda", torch.bfloat16,
+                                      quantize="w8a8", kv_quant=True)
+    greedy = greedy_with_gaps(torch, model, cfg, wav, amask, True)
+    beam_legs(torch, card, cfg, model, tr, requests[:1], wav, amask, greedy,
+              True, rtfx_bf16, launches, over)
+    for source in ("oracle", "mixed"):
+        spec_leg(torch, card, cfg, model, tr, wavs, wav, amask, source, True,
+                 greedy, launches, over, verify)
+    del cfg, model, tr
+    torch.cuda.empty_cache()
+
+    # (C) speculative, bf16, the hybrid model (its CTC heads draft)
+    cfg, model, tr = full_width.build(SEED, "cuda", torch.bfloat16,
+                                      hybrid=True)
+    greedy = greedy_with_gaps(torch, model, cfg, wav, amask, False)
+    say(f"spec[bf16]: greedy on the hybrid model {greedy[2]:.3f} ms an "
+        f"emitted token ({greedy[3]} tokens) B={BATCH} [{card}]")
+    for source in ("ctc", "oracle", "mixed"):
+        spec_leg(torch, card, cfg, model, tr, wavs, wav, amask, source,
+                 False, greedy, launches, over, verify)
+    del cfg, model, tr
+    torch.cuda.empty_cache()
+
+    verify_times(torch, card, verify, records)
+    say(f"decoding: phase wall {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    if over:
+        fail("decoding variants: " + "; ".join(over))
+
+
 def main() -> None:
     # the port stands alone: importing JAX or the JAX package now fails
     sys.modules["jax"] = None
@@ -2034,6 +2474,19 @@ def main() -> None:
     torch.cuda.synchronize()
     say(f"build: {time.perf_counter() - t0:.2f} s (nvcc, in parallel "
         f"{ {k: round(v, 2) for k, v in _build.build_seconds.items()} })")
+
+    if "--only-decoding" in sys.argv[1:]:
+        # phase 15 alone, on the model of a bf16 serve of its requests (in
+        # place of phase 4's RTFx)
+        launches = dict.fromkeys(kernels.WRAPPERS, 0)
+        bf16 = [full_width.build(SEED, "cuda", torch.bfloat16)]
+        _, rtfx_bf16 = serve_phase(torch, card, bf16[0][0], bf16[0][2],
+                                   decoding_requests(), "bf16")
+        decoding_phase(torch, card, launches, None, rtfx_bf16, bf16)
+        say(f"decoding: launches {launches} (phase 15 alone: no kernels "
+            "record)")
+        print(json.dumps({"ok": True, "only": "decoding"}), flush=True)
+        return
 
     if "--only-family" in sys.argv[1:]:
         # phase 14 alone, beside a bf16 serve of the model without the
@@ -2144,6 +2597,9 @@ def main() -> None:
 
     # -- the bridge and adapter family -------------------------------------
     family_phase(torch, card, launches, rtfx_bf16)
+
+    # -- beam search and speculative decoding ------------------------------
+    decoding_phase(torch, card, launches, records, rtfx_bf16)
 
     records = list(records.values())
     for r in records:

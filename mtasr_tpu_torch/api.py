@@ -4,6 +4,7 @@
     t = Transcriber.from_pretrained("exp/model", quantize="w8a8",
                                     kv_quant=True)
     texts = t.transcribe([wav_a, wav_b])     # greedy SOT decode
+    best = t.transcribe([wav_a], num_beams=4)   # beam search, best beam
     streams = t.transcribe_ctc([wav_a])      # K per-speaker CTC transcripts
 
 `from_pretrained` loads a model directory (`utils/model_io.py`) onto the
@@ -32,6 +33,7 @@ from mtasr_tpu_torch.data.pipeline import PreparedExample, decode_batches
 from mtasr_tpu_torch.data.tokenizer import (
     CharTokenizer, HFTokenizer, build_prompt_and_input,
 )
+from mtasr_tpu_torch.generate.beam import beam_generate
 from mtasr_tpu_torch.generate.engine import generate, generate_ctc
 from mtasr_tpu_torch.utils.wer import clean_decoded_text
 
@@ -161,13 +163,11 @@ class Transcriber:
                    batch_size: int = 8,
                    max_new_tokens: Optional[int] = None,
                    num_beams: int = 1, clean: bool = True) -> List[str]:
-        """Greedy (or self.gen-configured) SOT decode. audio: wav paths or
-        1-D float waveforms at DataConfig.sampling_rate. Returns one
+        """Greedy (or self.gen-configured) SOT decode; with num_beams > 1,
+        beam search (`generate/beam.py`, with self.gen's `kv_quant` and
+        `encode_chunk`), each input's best beam. audio: wav paths or 1-D
+        float waveforms at DataConfig.sampling_rate. Returns one
         `<sc>`-separated transcript per input, in input order."""
-        if num_beams > 1:
-            raise NotImplementedError("beam search is not ported yet "
-                                      "(ROADMAP.md queue 1, item 7: "
-                                      "decoding variants)")
         device = next(self.model.parameters()).device
         results: Dict[str, str] = {}
         for batch in self._batches(self._examples(audio, prompt),
@@ -175,11 +175,21 @@ class Transcriber:
             wav = torch.from_numpy(batch.arrays["input_values"]).to(device)
             amask = torch.from_numpy(batch.arrays["audio_mask"]).to(device)
             pr = batch.arrays.get("prompt_ids")
-            out = generate(self.model, self.cfg, wav, amask,
-                           prompt_ids=(torch.from_numpy(pr)
-                                       if pr is not None else None),
-                           gen=self.gen, max_new_tokens=max_new_tokens)
-            seqs = out.sequences.cpu().numpy()
+            pr = torch.from_numpy(pr) if pr is not None else None
+            if num_beams > 1:
+                gen = self.gen
+                seqs = beam_generate(
+                    self.model, self.cfg, wav, amask, prompt_ids=pr,
+                    num_beams=num_beams,
+                    max_new_tokens=max_new_tokens or (gen.max_new_tokens
+                                                      or gen.max_length),
+                    kv_quant=gen.kv_quant, encode_chunk=gen.encode_chunk
+                ).sequences[:, 0]
+            else:
+                seqs = generate(self.model, self.cfg, wav, amask,
+                                prompt_ids=pr, gen=self.gen,
+                                max_new_tokens=max_new_tokens).sequences
+            seqs = seqs.cpu().numpy()
             for i, uid in enumerate(batch.utt_ids):
                 text = self.tokenizer.decode(seqs[i],
                                              skip_special_tokens=False)

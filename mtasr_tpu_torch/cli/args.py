@@ -2,36 +2,34 @@
 the same flags, defaults and types), plus `--device`.
 
 Flags of parts the port does not run keep their place; `refuse_unported`
-raises with the part's ROADMAP item when one is set away from its
+raises with the reason (the ROADMAP item) when one is set away from its
 default."""
 from __future__ import annotations
 
 import argparse
 
-# flag -> (its default, the ROADMAP.md queue 1 item that ports its part)
+# flag -> (its default, why the port refuses another value)
 UNPORTED = {
-    "num_beams": (1, "item 7: decoding variants"),
-    "speculative": (None, "item 7: decoding variants"),
-    "pipelined": (False, "item 7: decoding variants (generate/pipelined.py "
-                         "is not ported; a CUDA graph takes its place)"),
-    "dp_size": ((-1, 1), "item 8: multi-GPU"),
-    "tp_size": (1, "item 8: multi-GPU"),
+    "pipelined": (False, "not ported: ROADMAP queue 1 item 2's CUDA-graph "
+                         "step takes its place"),
+    "dp_size": ((-1, 1), "not ported yet (ROADMAP.md queue 1, item 8: "
+                         "multi-GPU)"),
+    "tp_size": (1, "not ported yet (ROADMAP.md queue 1, item 8: "
+                   "multi-GPU)"),
 }
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise NotImplementedError for a flag that asks for a part the port
     does not have."""
-    for name, (default, item) in UNPORTED.items():
+    for name, (default, why) in UNPORTED.items():
         if not hasattr(args, name):
             continue
         value = getattr(args, name)
         ok = value in default if isinstance(default, tuple) \
             else value == default
         if not ok:
-            raise NotImplementedError(
-                f"--{name} {value} is not ported yet (ROADMAP.md queue 1, "
-                f"{item})")
+            raise NotImplementedError(f"--{name} {value} is {why}")
 
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:
@@ -139,7 +137,7 @@ def add_generation_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--num_beams", type=int, default=1)
     g.add_argument("--length_penalty", type=float, default=1.0,
                    help="beam-search length penalty (only with "
-                        "--num_beams > 1, which is not ported)")
+                        "--num_beams > 1)")
     g.add_argument("--do_sample", action="store_true")
     g.add_argument("--temperature", type=float, default=1.0)
     g.add_argument("--top_k", type=int, default=0)

@@ -1,5 +1,7 @@
 """Batched inference over a Kaldi data directory (counterpart of
-`mtasr_tpu/cli/inference_asr.py`): greedy or sampled SOT decoding, or the
+`mtasr_tpu/cli/inference_asr.py`): greedy or sampled SOT decoding, beam
+search (`--num_beams`, `--length_penalty`), speculative greedy decoding
+drafted by the CTC heads (`--speculative ctc`, `--spec_k`), or the
 one-shot CTC decode (`--ctc_decoding`); int8 serving through the streamed
 load (`--quantize`, `--quantize_scope`, `--kv_quant`). Writes `label.<i>`
 and `decod.<i>` (utterance id + text) for shard i of `--num_shards`, and
@@ -27,6 +29,7 @@ from mtasr_tpu_torch.data.audio import load_kaldi_dir
 from mtasr_tpu_torch.data.pipeline import (
     batches_from_examples, prepare_examples,
 )
+from mtasr_tpu_torch.generate.beam import beam_generate
 from mtasr_tpu_torch.generate.engine import generate, generate_ctc
 from mtasr_tpu_torch.utils.wer import Calculator, clean_decoded_text
 
@@ -139,7 +142,8 @@ def main(argv=None):
                            do_sample=args.do_sample,
                            temperature=args.temperature, top_k=args.top_k,
                            top_p=args.top_p, kv_quant=args.kv_quant,
-                           encode_chunk=args.encode_chunk)
+                           encode_chunk=args.encode_chunk,
+                           speculative=args.speculative, spec_k=args.spec_k)
     sampler = None
     if args.do_sample:
         sampler = torch.Generator(device=device)
@@ -156,14 +160,20 @@ def main(argv=None):
                 shard_index=args.shard_index, num_shards=args.num_shards):
             wav = torch.from_numpy(batch.arrays["input_values"]).to(device)
             amask = torch.from_numpy(batch.arrays["audio_mask"]).to(device)
+            pr = batch.arrays.get("prompt_ids")
+            pr = None if pr is None else torch.from_numpy(pr)
             if args.ctc_decoding:
                 seqs, _ = generate_ctc(model, cfg, wav, amask,
                                        max_out_len=args.max_length)
+            elif args.num_beams > 1:
+                seqs = beam_generate(
+                    model, cfg, wav, amask, prompt_ids=pr,
+                    num_beams=args.num_beams, max_new_tokens=args.max_length,
+                    length_penalty=args.length_penalty,
+                    kv_quant=args.kv_quant,
+                    encode_chunk=args.encode_chunk).sequences[:, 0]
             else:
-                pr = batch.arrays.get("prompt_ids")
-                seqs = generate(model, cfg, wav, amask,
-                                prompt_ids=None if pr is None
-                                else torch.from_numpy(pr),
+                seqs = generate(model, cfg, wav, amask, prompt_ids=pr,
                                 gen=gen, generator=sampler).sequences
             seqs = seqs.cpu().numpy()
             for i, utt_id in enumerate(batch.utt_ids):

@@ -313,12 +313,12 @@ class GenerationConfig:
     temperature: float = 1.0
     top_k: int = 0
     top_p: float = 1.0
-    use_cache: bool = True         # False (no KV cache) is refused
+    use_cache: bool = True         # read by no route, as in the JAX package
     # int8 KV cache (per-(row, slot, head) scales)
     kv_quant: bool = False
     # encode the batch this many rows at a time (None: all at once)
     encode_chunk: Optional[int] = None
-    # not ported yet; a config that asks for it is refused
+    # "ctc": speculative greedy decoding drafted by the CTC heads
     speculative: Optional[str] = None
     spec_k: int = 4
     spec_cache_factor: float = 2.0

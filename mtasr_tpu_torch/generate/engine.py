@@ -18,6 +18,7 @@ path on its separated stream, no decoder.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -228,20 +229,6 @@ def _decode(model: SpeechEncoderDecoderModel,
                           steps=steps)
 
 
-def _check_gen(gen: GenerationConfig) -> None:
-    if gen.num_beams > 1:
-        raise NotImplementedError("beam search is not ported yet (ROADMAP.md "
-                                  "queue 1, item 7: decoding variants)")
-    if gen.speculative:
-        raise NotImplementedError("speculative decoding is not ported yet "
-                                  "(ROADMAP.md queue 1, item 7: decoding "
-                                  "variants)")
-    if not gen.use_cache:
-        raise NotImplementedError("decoding without the KV cache is not "
-                                  "ported (ROADMAP.md queue 1, item 7: "
-                                  "decoding variants)")
-
-
 def generate(model: SpeechEncoderDecoderModel,
              cfg: SpeechEncoderDecoderConfig, input_values: torch.Tensor,
              audio_mask: Optional[torch.Tensor],
@@ -253,9 +240,25 @@ def generate(model: SpeechEncoderDecoderModel,
     without BOS (they must end with <boss><eoss><bosr>); all rows share one
     prompt layout. `generator` drives sampling (do_sample=True). A model
     with a decoder LoRA decodes with it folded into the weights for the
-    call (`train.lora.merged`), as the JAX engine merges it per call."""
+    call (`train.lora.merged`), as the JAX engine merges it per call.
+
+    With `gen.speculative` the decode is `speculative.generate_speculative`
+    (greedy, the same tokens), whose verify and fallback steps and accepted
+    drafts are logged. Like the JAX `generate`, it reads neither
+    `num_beams` (beam search is `beam.beam_generate`) nor `use_cache`
+    (every route decodes over the KV cache)."""
     gen = gen or GenerationConfig()
-    _check_gen(gen)
+    if gen.speculative:
+        from mtasr_tpu_torch.generate.speculative import generate_speculative
+        out, st = generate_speculative(
+            model, cfg, input_values, audio_mask, prompt_ids=prompt_ids,
+            gen=gen, max_new_tokens=max_new_tokens)
+        emitted = max(int(st.emitted.sum()), 1)
+        logging.getLogger("mtasr_tpu_torch.generate").info(
+            "speculative: %d verify + %d fallback steps, %d/%d tokens from "
+            "accepted drafts (%.0f%%)", st.spec_steps, st.fallback_steps,
+            st.accepted_drafts, emitted, 100.0 * st.accepted_drafts / emitted)
+        return out
     with merged(model), torch.inference_mode():
         return _generate(model, cfg, input_values, audio_mask, prompt_ids,
                          gen, generator, max_new_tokens)

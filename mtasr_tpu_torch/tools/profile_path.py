@@ -2,6 +2,7 @@
 
     python -m mtasr_tpu_torch.tools.profile_path [--batch 8] [--steps 32]
         [--quantize w8a8] [--kv_quant] [--family A|B|C] [--trace-dir DIR]
+        [--beams W] [--speculative ctc|oracle]
     python -m mtasr_tpu_torch.tools.profile_path --train [--hybrid]
         [--family A|B|C] [--batch 16]
 
@@ -31,6 +32,19 @@ model (the separator still runs), and the decode steps with the
 adapters' layer hook removed (same memory, same cache); the differences of
 device busy time are the bridge's ms a batch (refiner, bridge, adapter
 memory) and the adapters' ms over the steps, with their shares.
+
+`--beams W` adds beam search over the same encoding (`beam._beam`: its
+prefill, then `--steps` steps at B * W rows), timed and profiled the same
+way: its wall and device ms a step (the prefill's, from the base run,
+taken off), and the device ms a step of the cache gather by beam parent,
+the wide top-k and the rest of the bookkeeping (profiler ranges around
+`beam.gather_cache`, `beam._top_k_wide` and `beam.beam_state_step`).
+`--speculative` adds speculative decoding of up to 150 tokens over the
+same encoding (`speculative._spec`, spec_k 4) from the CTC heads' drafts
+(`ctc`, on the hybrid model) or from the greedy decode's own tokens
+(`oracle`): its verify steps' wall and device ms each (the prefill's taken
+off), the fallback steps, and the tokens each verify step emitted and
+accepted from the drafts, a row.
 """
 from __future__ import annotations
 
@@ -138,6 +152,11 @@ def main(argv=None) -> None:
     ap.add_argument("--family", choices=sorted(full_width.FAMILY),
                     default=None, help="a configuration of the bridge and "
                     "adapter family (full_width.FAMILY)")
+    ap.add_argument("--beams", type=int, default=None,
+                    help="also profile beam search at this width")
+    ap.add_argument("--speculative", choices=("ctc", "oracle"), default=None,
+                    help="also profile speculative decoding from these "
+                    "drafts (ctc: on the hybrid model)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_path needs a CUDA device")
@@ -147,6 +166,7 @@ def main(argv=None) -> None:
     cfg, model, tr = full_width.build(args.seed, "cuda", torch.bfloat16,
                                       quantize=args.quantize,
                                       kv_quant=args.kv_quant,
+                                      hybrid=args.speculative == "ctc",
                                       family=args.family)
     wavs = full_width.waveforms(args.seed, 1, B)[0]
     batch = next(iter(tr._batches(tr._examples(wavs, ""), B)))
@@ -205,7 +225,121 @@ def main(argv=None) -> None:
     if args.family:
         family_parts(args, cfg, encode, prefill, decode, enc, b_enc, b_dec,
                      record)
+    base = (w_pre, b_pre, w_dec / args.steps, b_dec / args.steps)
+    if args.beams:
+        beam_parts(args, cfg, model, enc, ids, splice, base, record)
+    if args.speculative:
+        spec_parts(args, cfg, model, enc, ids, splice, wav, amask, base,
+                   record)
     print(json.dumps(record), flush=True)
+
+
+def _range_ms(prof, name: str) -> float:
+    """Device ms of the kernels launched inside the profiler ranges
+    `name`."""
+    for e in prof.key_averages():
+        if e.key == name:
+            return getattr(e, "device_time_total", 0.0) / 1e3
+    return 0.0
+
+
+def beam_parts(args, cfg, model, enc, ids, splice, base, record) -> None:
+    """Beam search's ms a step and its gather's and top-k's (module
+    docstring)."""
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mtasr_tpu_torch.generate import beam
+    w_pre, b_pre, w_step, b_step = base
+    W, n = args.beams, args.steps
+
+    def run():
+        return beam._beam(model, cfg, enc, ids, splice, W, n + 1, 1.0,
+                          args.kv_quant)
+
+    def ranged(name, fn):
+        def wrapped(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return wrapped
+    run()
+    out, wall = wall_ms(run)
+    if out.steps != n:
+        raise SystemExit(f"beam search ran {out.steps} steps, not {n}")
+    torch.cuda.synchronize()
+    with mock.patch.object(beam, "gather_cache",
+                           ranged("beam.gather", beam.gather_cache)), \
+            mock.patch.object(beam, "_top_k_wide",
+                              ranged("beam.topk", beam._top_k_wide)), \
+            mock.patch.object(beam, "beam_state_step",
+                              ranged("beam.step", beam.beam_state_step)), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof, \
+            torch.inference_mode():
+        run()
+        torch.cuda.synchronize()
+    busy = busy_ms([(e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA])
+    gather, topk, step = (_range_ms(prof, k) / n for k in
+                          ("beam.gather", "beam.topk", "beam.step"))
+    rec = {"beams": W, "steps": n, "wall_ms_per_step": (wall - w_pre) / n,
+           "busy_ms_per_step": (busy - b_pre) / n,
+           "gather_ms_per_step": gather, "topk_ms_per_step": topk,
+           "bookkeeping_ms_per_step": step}
+    record["beam"] = rec
+    print(f"== beam W={W}: {rec['wall_ms_per_step']:.3f} ms wall, "
+          f"{rec['busy_ms_per_step']:.3f} ms device a step (greedy "
+          f"{w_step:.3f} / {b_step:.3f}); a step's device ms: gather "
+          f"{gather:.4f}, top-k {topk:.4f}, bookkeeping with the top-k "
+          f"{step:.4f}", flush=True)
+
+
+def spec_parts(args, cfg, model, enc, ids, splice, wav, amask, base,
+               record) -> None:
+    """Speculative decoding's ms a verify step and its acceptance (module
+    docstring)."""
+    from mtasr_tpu_torch.generate import speculative
+    w_pre, b_pre, w_step, b_step = base
+    B, spec_k = wav.shape[0], 4
+    with torch.inference_mode():
+        if args.speculative == "ctc":
+            draft = speculative.ctc_sot_draft(model, cfg, enc,
+                                              max_out_len=MAX_NEW)
+        else:
+            draft = engine.generate(
+                model, cfg, wav, amask, max_new_tokens=MAX_NEW,
+                gen=GenerationConfig(kv_quant=args.kv_quant)).sequences
+    total = ids.shape[1] + enc.encoder_hidden_states.shape[1]
+    s_max = total + 2 * MAX_NEW + spec_k + 1
+
+    def run():
+        return speculative._spec(model, cfg, enc, ids, draft, splice,
+                                 args.kv_quant, MAX_NEW, spec_k, s_max)
+    run()
+    (out, st), wall = wall_ms(run)
+    _, busy, top = profiled(run)
+    n = st.spec_steps + st.fallback_steps
+    rec = {"drafts": args.speculative, "spec_k": spec_k,
+           "verify_steps": st.spec_steps,
+           "fallback_steps": st.fallback_steps,
+           "wall_ms_per_step": (wall - w_pre) / n,
+           "busy_ms_per_step": (busy - b_pre) / n,
+           "emitted_per_row_step": float(st.emitted.sum()) / B / n,
+           "accepted_per_row_step": st.accepted_drafts / B / n}
+    record["speculative"] = rec
+    print(f"== speculative ({args.speculative} drafts, spec_k {spec_k}): "
+          f"{st.spec_steps} verify + {st.fallback_steps} fallback steps, "
+          f"{rec['wall_ms_per_step']:.3f} ms wall, "
+          f"{rec['busy_ms_per_step']:.3f} ms device a step (a decode step "
+          f"{w_step:.3f} / {b_step:.3f}); a row emits "
+          f"{rec['emitted_per_row_step']:.3f} tokens a step, "
+          f"{rec['accepted_per_row_step']:.3f} of them accepted drafts",
+          flush=True)
+    for kname, ms, cnt in top:
+        print(f"   {ms:9.3f} ms x{cnt:5d}  {kname}", flush=True)
 
 
 def family_parts(args, cfg, encode, prefill, decode, enc, b_enc, b_dec,

@@ -1,22 +1,27 @@
 """Transcript clean-up and word error rate (counterpart of
-`mtasr_tpu/utils/wer.py`: `clean_decoded_text`, and the `Calculator` that
-the trainer's `evaluate` and the inference CLI's report score with).
+`mtasr_tpu/utils/wer.py`: `clean_decoded_text`, the `Calculator` that the
+trainer's `evaluate` and the inference CLI's report score with, cpWER and
+`score_files`, the `compute-wer` tool's report).
 
 The alignment is the reference scorer's: Levenshtein with cor 0 and sub /
 del / ins 1, and at equal cost the traceback prefers del, then ins, then
 the diagonal. Tokens are split on whitespace (or, in char mode, into CJK
 characters and runs of other characters, punctuation dropped, `<tags>`
 whole), upper-cased unless case-sensitive, and stripped of `<...>` tags
-before they are aligned. `summary()` is the reference report's line. The
-ignore list and the alignment strings of the JAX module, and its cpWER and
-`score_files`, are not ported (ROADMAP.md queue 1, item 8).
+before they are aligned. `summary()` is the reference report's line.
+Everything runs in Python: the JAX module's g++ fast paths
+(`utils/native.py`) give the same numbers and are not ported. The JAX
+`Calculator`'s ignore list, which no caller sets, is not ported either.
 """
 from __future__ import annotations
 
 import re
 import unicodedata
-from dataclasses import dataclass
-from typing import Dict, List, Sequence
+import itertools
+from dataclasses import dataclass, field
+from typing import Dict, List, Sequence, Tuple
+
+from mtasr_tpu_torch.data.audio import read_scp
 
 ALLOWED_SPECIAL_TOKENS = ("<sc>", "<bos_prompt>", "<eos_prompt>",
                           "<bos_speech>", "<eos_speech>", "<bos_response>",
@@ -94,6 +99,8 @@ class EditStats:
     sub: int = 0
     dele: int = 0
     ins: int = 0
+    lab_align: List[str] = field(default_factory=list)   # "" where inserted
+    rec_align: List[str] = field(default_factory=list)   # "" where deleted
 
     @property
     def errors(self) -> int:
@@ -135,14 +142,22 @@ def align(lab: Sequence[str], rec: Sequence[str]) -> EditStats:
         if e in ("cor", "sub"):
             stats.all += 1
             setattr(stats, e, getattr(stats, e) + 1)
+            stats.lab_align.append(lab[i - 1])
+            stats.rec_align.append(rec[j - 1])
             i, j = i - 1, j - 1
         elif e == "del":
             stats.all += 1
             stats.dele += 1
+            stats.lab_align.append(lab[i - 1])
+            stats.rec_align.append("")
             i -= 1
         else:
             stats.ins += 1
+            stats.lab_align.append("")
+            stats.rec_align.append(rec[j - 1])
             j -= 1
+    stats.lab_align.reverse()
+    stats.rec_align.reverse()
     return stats
 
 
@@ -172,3 +187,45 @@ class Calculator:
         t = self.total
         return (f"Overall -> {t.wer:.2f} % N={t.all} C={t.cor} S={t.sub} "
                 f"D={t.dele} I={t.ins}")
+
+
+def cpwer(ref_streams: Sequence[str], hyp_streams: Sequence[str],
+          char_mode: bool = False, case_sensitive: bool = False
+          ) -> Tuple[float, Tuple[int, ...]]:
+    """Concatenated minimum-permutation WER over K speaker streams: every
+    assignment of hypothesis streams to reference streams is scored, the
+    first best (in `itertools.permutations` order) wins. Returns (WER %,
+    the permutation: reference i is scored against hypothesis perm[i]).
+    Stream lists of unequal length are padded with empty strings."""
+    K = max(len(ref_streams), len(hyp_streams))
+    refs = [_tokens(r, char_mode, case_sensitive) for r in
+            list(ref_streams) + [""] * (K - len(ref_streams))]
+    hyps = [_tokens(h, char_mode, case_sensitive) for h in
+            list(hyp_streams) + [""] * (K - len(hyp_streams))]
+    best, best_perm = None, None
+    for perm in itertools.permutations(range(K)):
+        pairs = [align(refs[i], hyps[j]) for i, j in enumerate(perm)]
+        w = 100.0 * sum(s.errors for s in pairs) / max(
+            sum(s.all for s in pairs), 1)
+        if best is None or w < best:
+            best, best_perm = w, perm
+    return best, best_perm
+
+
+def score_files(ref_path: str, hyp_path: str, char_mode: bool = False,
+                case_sensitive: bool = False, verbose: bool = False) -> str:
+    """Kaldi-style `utt_id text` files -> the report: with `verbose`, each
+    utterance's alignment and line, then the `Overall` line. An utterance
+    missing from the hypotheses is scored against nothing."""
+    refs, hyps = read_scp(ref_path), read_scp(hyp_path)
+    calc = Calculator(char_mode, case_sensitive)
+    lines = []
+    for utt_id, ref in refs.items():
+        s = calc.calculate(utt_id, ref, hyps.get(utt_id, ""))
+        if verbose:
+            lines += [f"utt: {utt_id}", "lab: " + " ".join(s.lab_align),
+                      "rec: " + " ".join(s.rec_align),
+                      f"WER: {s.wer:.2f} % N={s.all} C={s.cor} S={s.sub} "
+                      f"D={s.dele} I={s.ins}", ""]
+    lines.append(calc.summary())
+    return "\n".join(lines)

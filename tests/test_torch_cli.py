@@ -206,12 +206,12 @@ def test_unported_flags_and_incompatible_combinations_refuse(
     """Flags of unported parts raise with their ROADMAP item; incompatible
     decode flags exit. The bridge and adapter family's flags (item 6) are
     ported: the create CLI builds adapters, the fine-tune CLI trains with
-    the flags passed onto the config, the inference CLI takes them."""
+    the flags passed onto the config, the inference CLI takes them. The
+    decoding variants (item 7) run: `--speculative ctc` decodes the
+    directory to greedy's own text, `--num_beams 2` to the JAX CLI's."""
     common = ["--model_name_or_path", "unused", "--data_dir", "unused",
               "--output_dir", str(tmp_path), "--device", "cpu"]
-    for flags, item in ((["--num_beams", "2"], "item 7"),
-                        (["--speculative", "ctc"], "item 7"),
-                        (["--pipelined"], "item 7"),
+    for flags, item in ((["--pipelined"], "item 2"),
                         (["--dp_size", "2"], "item 8"),
                         (["--tp_size", "2"], "item 8")):
         with pytest.raises(NotImplementedError, match=item):
@@ -236,6 +236,13 @@ def test_unported_flags_and_incompatible_combinations_refuse(
         out = _infer(model, mini_dataset, str(tmp_path / flags[0][2:]),
                      *flags)
         assert len(out.splitlines()) == 4
+    greedy = _infer(model, mini_dataset, str(tmp_path / "greedy"))
+    assert _infer(model, mini_dataset, str(tmp_path / "spec"),
+                  "--speculative", "ctc") == greedy
+    beam = ("--num_beams", "2", "--length_penalty", "0.5")
+    assert _infer(model, mini_dataset, str(tmp_path / "beam"), *beam) == \
+        _infer(model, mini_dataset, str(tmp_path / "jbeam"), *beam,
+               jax_cli=True)
     trainer = tfinetune.main([
         "--model_name_or_path", model, "--data_dir", mini_dataset,
         "--output_dir", str(tmp_path / "ft"), "--talker_ctc", "--train_mode",

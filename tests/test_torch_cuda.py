@@ -1282,3 +1282,110 @@ def test_family_token_memory_on_the_card_equals_the_cpu(gen):
     for g, r in zip(got, bridges.build_multi_ctc_prefix(ids, table, V - 1,
                                                         40)):
         assert torch.equal(g.cpu(), r)
+
+
+# -- decoding variants: beam search and speculative verify ------------------
+def _verify_mask(B, L, S, c, gen):
+    """The mask of a speculative verify chunk of L positions at slot c:
+    the prefill's 64 slots, then generated slots with holes where rejected
+    drafts left them, causal inside the chunk, nothing past it; row 1 is a
+    done row, whose generated slots all went invalid."""
+    mask = torch.zeros((B, L, S), dtype=torch.bool, device="cuda")
+    mask[:, :, :64] = True
+    mask[-1, :, 40:64] = False                       # a padded row
+    mask[:, :, 64:c] = torch.rand((B, 1, c - 64), generator=gen,
+                                  device="cuda") > 0.4
+    mask[1, :, 64:c] = False
+    for pos in range(L):
+        mask[:, pos, c:c + pos + 1] = True
+    return mask
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("L", [5, 16])
+def test_chunk_kernels_at_verify_masks(gen, int8, L):
+    """#5 / #7 at the speculative verify's shapes (B = 8, 32 q / 8 kv heads
+    of 64, S_max = 369) under masks with holes in the middle of the cache
+    and a done row, against their plain versions."""
+    from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    B, S, hq, hkv, D, c = 8, 369, 32, 8, 64, 200
+    q = _randn(gen, B, L, hq, D)
+    mask = _verify_mask(B, L, S, c, gen)
+    if int8:
+        k8, v8, kvs = _int8_cache(gen, B, S, hkv, D)
+        n = dc.decode_attention_int8_chunk.launches
+        out = dc.decode_attention_int8_chunk(q, k8, v8, kvs, mask)
+        assert dc.decode_attention_int8_chunk.launches == n + 1
+        ref, sp = di.int8_cache_attention(q, k8, v8, kvs, mask)
+        _check_int8(out, ref.to(torch.bfloat16), sp)
+    else:
+        kc, vc = _randn(gen, B, S, hkv * D), _randn(gen, B, S, hkv * D)
+        n = dc.decode_attention_chunk.launches
+        out = dc.decode_attention_chunk(q, kc, vc, mask)
+        assert dc.decode_attention_chunk.launches == n + 1
+        _check(out, dc.decode_attention_chunk_plain(q, kc, vc, mask), 4)
+
+
+@pytest.mark.parametrize("N", [128264, 4 * 128264])
+def test_argmax_takes_the_first_maximal_index_on_the_card(gen, N):
+    """Beam search's wide top-k is argmax passes: on the card torch.argmax
+    must return the first maximal index, as lax.top_k breaks ties; the
+    top-k then equals the CPU's."""
+    from mtasr_tpu_torch.generate import beam
+    x = torch.randn((32, N), generator=gen, device="cuda")
+    for r in range(32):                  # four maxima, the first at 7 + r
+        x[r, [N - 1 - r, N // 2 + r, 7 + r, 3 * N // 4]] = 100.0
+    assert x.argmax(-1).tolist() == [7 + r for r in range(32)]
+    v, i = beam._top_k_wide(x, 8)
+    vc, ic = beam._top_k_wide(x.cpu(), 8)
+    assert torch.equal(i.cpu(), ic) and torch.equal(v.cpu(), vc)
+
+
+def test_beam_w1_equals_greedy_on_the_card(gen):
+    """beam_generate with one beam gives greedy's tokens, bit for bit,
+    through #4 (16 steps a decoder layer each)."""
+    from mtasr_tpu_torch.generate import beam
+    from mtasr_tpu_torch.generate.engine import generate
+    from mtasr_tpu_torch.ops import kernels
+    cfg, _, model = _two_layer_model()
+    wav, amask = _wav_batch()
+    ref = generate(model, cfg, wav, amask, max_new_tokens=24)
+    kernels.reset_launch_counts()
+    out = beam.beam_generate(model, cfg, wav, amask, num_beams=1,
+                             max_new_tokens=24)
+    counts = kernels.launch_counts()
+    assert torch.equal(out.sequences[:, 0], ref.sequences)
+    assert counts["decode_attention"] == 2 * out.steps > 0
+    assert bool(torch.isfinite(out.scores).all())
+
+
+def test_beam_gather_covers_the_int8_cache(gen):
+    """`gather_cache` on an int8 cache moves every leaf by beam parent:
+    K, V, the interleaved scales and the validity mask, over the filled
+    slots, and leaves the empty slots empty."""
+    from mtasr_tpu_torch.config import LlamaConfig
+    from mtasr_tpu_torch.generate import beam
+    from mtasr_tpu_torch.models.llama import KVCache
+    dec = LlamaConfig(num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, head_dim=64, hidden_size=256)
+    cache = KVCache.init(dec, 6, 40, torch.bfloat16, "cuda", quantized=True)
+    n = 25
+    for x, axis in beam._cache_leaves(cache):
+        sl = (slice(None),) * axis + (slice(0, n),)
+        if x.dtype == torch.bool:
+            x[sl] = torch.rand(x[sl].shape, generator=gen,
+                               device="cuda") > 0.5
+        elif x.dtype == torch.int8:
+            x[sl] = torch.randint(-127, 128, x[sl].shape, generator=gen,
+                                  device="cuda", dtype=torch.int8)
+        else:
+            x[sl] = _randn(gen, *x[sl].shape)
+    before = [x.clone() for x, _ in beam._cache_leaves(cache)]
+    parent = torch.tensor([2, 2, 0, 5, 3, 3], device="cuda")
+    beam.gather_cache(cache, parent, n)
+    leaves = list(beam._cache_leaves(cache))
+    assert len(leaves) == 2 * 2 + 2 + 1
+    for (x, _), x0 in zip(leaves, before):
+        assert torch.equal(x, x0[parent])
+        assert not bool(x0[parent].flatten(1)[:, -1].any())

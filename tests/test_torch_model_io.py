@@ -154,7 +154,9 @@ def test_config_json_round_trips(i):
 
 def test_unported_switches_raise_with_their_item():
     """Unported switches raise with their ROADMAP item; the adapters (item
-    6, ported) now build from a config read back from its JSON."""
+    6, ported) now build from a config read back from its JSON, and
+    `use_cache=False` (read by no route of either package) decodes as the
+    default does."""
     cfg = tconfig.SpeechEncoderDecoderConfig.from_json(
         tiny_cfg(train_mode="attention", decoder_cross_attention=True,
                  decoder_cross_attention_type="gatetiny").to_json())
@@ -165,8 +167,11 @@ def test_unported_switches_raise_with_their_item():
         tiny_cfg(ctc_bridge_type="nope").to_json())
     with pytest.raises(ValueError, match="ctc_bridge_type"):
         bad.validate()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        engine._check_gen(tconfig.GenerationConfig(use_cache=False))
+    wav = torch.zeros(1, 4000)
+    out = engine.generate(model, cfg, wav, None, max_new_tokens=3,
+                          gen=tconfig.GenerationConfig(use_cache=False))
+    assert torch.equal(out.sequences, engine.generate(
+        model, cfg, wav, None, max_new_tokens=3).sequences)
     with pytest.raises(NotImplementedError, match="item 8"):
         Transcriber.from_pretrained("unused", dp_size=2, device="cpu")
 

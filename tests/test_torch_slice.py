@@ -142,10 +142,15 @@ def test_transcriber_matches_jax(instruct):
 
 
 def test_unported_routes_raise():
+    """What the port still refuses (tensor parallelism, ROADMAP item 8) and
+    what it refuses as JAX does (transcribe_ctc without CTC heads); the
+    decoding variants (item 7) run: a beam call gives the JAX
+    Transcriber's best beam, and a CTC-drafted speculative decode of the
+    bridged model greedy's tokens."""
     jt, tt = _transcribers()
-    wav = [np.zeros(4000, np.float32)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.transcribe(wav, num_beams=4)
+    wav = [np.random.default_rng(3).standard_normal(4000).astype(np.float32)]
+    kw = dict(max_new_tokens=4, clean=False, num_beams=4)
+    assert tt.transcribe(wav, **kw) == jt.transcribe(wav, **kw)
     with pytest.raises(ValueError, match="talker_ctc"):
         tt.transcribe_ctc(wav)          # no CTC heads on this model
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -158,9 +163,10 @@ def test_unported_routes_raise():
     out = engine.generate(model, bridged, torch.zeros(1, 4000), None,
                           max_new_tokens=2)
     assert out.sequences.shape == (1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.generate(tt.model, tt.cfg, torch.zeros(1, 4000), None,
-                        gen=tconfig.GenerationConfig(speculative="ctc"))
+    spec = engine.generate(model, bridged, torch.zeros(1, 4000), None,
+                           gen=tconfig.GenerationConfig(speculative="ctc"),
+                           max_new_tokens=2)
+    assert torch.equal(spec.sequences, out.sequences)
 
 
 def test_prompt_layout_refuses_heterogeneous_batch():
