@@ -160,6 +160,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -191,6 +192,14 @@ TRAIN_LR = 1e-4       # the JAX bench's training learning rate
 # that sound kernels read at full width; #9 with p 1 % high read 0.0186
 # (PERF.md, Findings)
 GRAD_TOL = 0.015
+# phase 16: rel-L2 of the rel-pos table's gradient alone (#10's output,
+# summed over the batch, the heads' bias positions and 24 layers), one
+# step on ranks vs one process. A sum of B T^2 terms a bucket that cancel
+# heavily: sound steps read 0.0129 (dp = 2) and 0.0263 (tp = 2), the
+# aggregate 0.0044 / 0.0090 of GRAD_TOL; the table entering tp without
+# `copy_to_tp` (each rank's gradient covers its heads alone) reads about
+# 0.7 (PERF.md, Findings)
+REL_POS_TOL = 0.05
 # the same for the hybrid step's encoder, separator and CTC-head gradients
 # (PCGrad's projected sum on the shared ones), kernels vs plain: about 2x
 # the 0.0100-0.0135 that sound kernels read at full width (the plain side's
@@ -2454,7 +2463,421 @@ def decoding_phase(torch, card: str, launches, records, rtfx_bf16,
         fail("decoding variants: " + "; ".join(over))
 
 
+# -- phase 16: data and tensor parallelism ----------------------------------
+PAR_WORLD = 2           # ranks of each leg, all on cuda:0 (gloo)
+PAR_TIMEOUT = 900       # seconds a launch of the ranks may take
+PAR_SEED = SEED + 16    # the serve legs' waveforms
+
+
+def first_inputs(torch, mod, name, into):
+    """While active, `mod.name`'s first call keeps a copy of its arguments
+    in `into[name]` (the inputs the kernel received on the served path)."""
+    from unittest import mock
+    real = getattr(mod, name)
+
+    def keep(*a, **kw):
+        if name not in into:
+            into[name] = tuple(x.clone() if torch.is_tensor(x) else x
+                               for x in a), \
+                {k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in kw.items()}
+        return real(*a, **kw)
+    return mock.patch.object(mod, name, keep)
+
+
+def captured_checks(torch, seen) -> dict:
+    """Each captured kernel against its plain version on its own inputs
+    (phase 3's tolerances): {name: (max_abs_err, tol, the inputs'
+    shapes)}; past its tolerance the rank fails."""
+    from mtasr_tpu_torch.ops.kernels import (
+        decode_attention as da, decode_attention_int8 as di,
+        flash_attention as fa,
+    )
+    pairs = {"flash_attention": (fa.flash_attention, fa.flash_attention_plain,
+                                 4),
+             "decode_attention": (da.decode_attention,
+                                  da.decode_attention_plain, 4),
+             "decode_attention_int8": (di.decode_attention_int8,
+                                       di.decode_attention_int8_plain, 1)}
+    out = {}
+    for name, (a, kw) in seen.items():
+        kernel, plain, n_ulps = pairs[name]
+        step = 0.0
+        if name == "decode_attention_int8":
+            q, k8, v8, kvs, mask = a
+            step = p_step(di, q[:, None], k8, v8, kvs, mask[:, None])
+        err, tol = check_err(torch, name, kernel(*a, **kw),
+                             plain(*a, **kw), n_ulps, step)
+        out[name] = (err, tol, [tuple(x.shape) for x in a
+                                if torch.is_tensor(x)])
+    return out
+
+
+def serve_leg(torch, mesh, quant, ref=None) -> dict:
+    """One serve leg on the model of `full_width.build` (bf16, or w8a8 +
+    int8 KV with `quant`), sharded over `mesh` (None: one process, the
+    reference): a transcribe call of phase 16's batch (its tokens, launch
+    counts, and the #2 / #4 or #6 inputs it gave, held against the plain
+    versions), the logits of the prefill and GATE_STEPS steps (teacher-fed
+    `ref`'s tokens), a timed call (RTFx) and one timed with the collective
+    clock on (the share of its wall in collectives)."""
+    from unittest import mock
+
+    import mtasr_tpu_torch.api as api_mod
+    import mtasr_tpu_torch.models.llama as llama_mod
+    import mtasr_tpu_torch.models.wavlm as wavlm_mod
+    from mtasr_tpu_torch.parallel.collectives import CollectiveClock
+    from mtasr_tpu_torch.parallel.mesh import dp_rows, gather_rows
+    from mtasr_tpu_torch.tools import full_width
+    q = "w8a8" if quant else None
+    cfg, model, tr = full_width.build(SEED, "cuda", torch.bfloat16,
+                                      quantize=q, kv_quant=bool(quant))
+    if mesh is not None:
+        from mtasr_tpu_torch.parallel.mesh import shard_model
+        shard_model(model, cfg, mesh)
+    wavs = full_width.waveforms(PAR_SEED, 1, BATCH, (6.0, 10.0))[0]
+    audio_s = sum(len(w) for w in wavs) / SR
+    kw = dict(batch_size=BATCH, max_new_tokens=MAX_NEW)
+    seen, tokens = {}, []
+    real = api_mod.generate
+
+    def keep(*a, **k):
+        out = real(*a, **k)
+        tokens.append(out.sequences.cpu())
+        return out
+    decode = "decode_attention_int8" if quant else "decode_attention"
+    with first_inputs(torch, wavlm_mod, "flash_attention", seen), \
+            first_inputs(torch, llama_mod, decode, seen), \
+            mock.patch.object(api_mod, "generate", keep):
+        _, counts, _ = counted(torch, lambda: tr.transcribe(wavs, **kw))
+    checks = captured_checks(torch, seen)
+    wav, amask = one_batch(torch, tr, wavs)
+    rows = dp_rows(mesh, BATCH)
+    fed = None if ref is None else ref["tokens"].cuda()
+    if fed is not None and rows is not None:
+        fed = fed[rows]
+    logits, _ = step_logits(torch, cfg, model, tr.gen, wav, amask,
+                            tokens=fed)
+    logits = gather_rows(logits, mesh, rows, dim=1).cpu()
+    _, _, wall = counted(torch, lambda: tr.transcribe(wavs, **kw))
+    CollectiveClock.on, CollectiveClock.seconds = True, 0.0
+    _, _, wall_c = counted(torch, lambda: tr.transcribe(wavs, **kw))
+    CollectiveClock.on = False
+    out = {"tokens": tokens[0], "logits": logits, "rtfx": audio_s / wall,
+           "wall": wall, "collective_share": CollectiveClock.seconds / wall_c,
+           "counts": counts, "checks": checks}
+    if mesh is None:
+        out["gap"] = greedy_with_gaps(torch, model, cfg, wav, amask,
+                                      bool(quant))[1]
+    del cfg, model, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_leg(torch, mesh) -> dict:
+    """One deterministic attention-mode step of phase 9's model (global
+    B = TRAIN_BATCH x AUDIO_S s, SpecAugment mask, no dropout, warmup 0)
+    through `Trainer`, sharded over `mesh` (None: one process): the loss,
+    the grad norm, the encoder's gradients (dp-summed, gathered whole) and
+    every trainable parameter after it (gathered whole), on the host; then
+    a timed step (ms/step) and one with the collective clock on."""
+    from mtasr_tpu_torch.config import DataConfig, TrainingConfig
+    from mtasr_tpu_torch.parallel.collectives import CollectiveClock
+    from mtasr_tpu_torch.parallel.mesh import gather_state_dict
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.train.loop import Trainer
+    cfg, model = full_width.build_train(SEED, "cuda", torch.bfloat16)
+    batch = full_width.train_batch(cfg, TRAIN_BATCH, AUDIO_S, SEED)
+    out_dir = tempfile.mkdtemp(prefix="parallel_train_")
+    tc = TrainingConfig(output_dir=out_dir, learning_rate=TRAIN_LR,
+                        warmup_steps=0, max_steps=1000, pcgrad=False)
+    trainer = Trainer(cfg, tc, DataConfig(), model, mesh=mesh,
+                      freeze_kwargs=dict(freeze_decoder=True))
+    opt, grads = trainer.optimizer, {}
+    real = opt._update
+
+    def keep(gs):
+        grads.update({n: g.detach().float().clone()
+                      for n, g in zip(opt.names, gs)
+                      if n.startswith("encoder.")})
+        real(gs)
+    opt._update = keep
+    step = trainer._train_step(batch.splice_index)
+    t = trainer._tensors(batch, rows=True)
+    before = yardstick = None
+    if mesh is None:
+        before = {n: p.detach().to("cpu", torch.float32, copy=True)
+                  for n, p in model.named_parameters() if p.requires_grad}
+        # the rounding yardstick: this step's encoder gradients with the
+        # kernels against the plain versions (phase 9's comparison)
+        _, gk, _, _ = encoder_grads(torch, cfg, model, t, False)
+        _, gp, _, _ = encoder_grads(torch, cfg, model, t, True)
+        table = [n for n in gk if "rel_attn_embed" in n]
+        yardstick = (rel_l2_dicts(gk, gp), rel_l2_dicts(
+            {n: gk[n] for n in table}, {n: gp[n] for n in table}))
+        del gk, gp
+    torch.cuda.reset_peak_memory_stats()
+    m, counts, _ = counted(torch, lambda: step(model, t, None))
+    opt._update = real
+    trained = {n: p.detach() for n, p in model.named_parameters()
+               if p.requires_grad}
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "grads": {k: v.cpu() for k, v in
+                     gather_state_dict(grads, model).items()},
+           "params": {k: v.to("cpu", torch.float32, copy=True) for k, v in
+                      gather_state_dict(trained, model).items()},
+           "counts": counts, "before": before, "yardstick": yardstick}
+    grads.clear()
+    _, _, wall = counted(torch, lambda: step(model, t, None))
+    CollectiveClock.on, CollectiveClock.seconds = True, 0.0
+    _, _, wall_c = counted(torch, lambda: step(model, t, None))
+    CollectiveClock.on = False
+    out.update(ms=1e3 * wall, collective_share=CollectiveClock.seconds
+               / wall_c, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    del cfg, model, trainer, opt, step, t
+    torch.cuda.empty_cache()
+    return out
+
+
+def rel_l2_dicts(got, ref) -> float:
+    num = math.sqrt(sum(float((got[n].float() - ref[n].float()).pow(2)
+                              .sum()) for n in ref))
+    den = math.sqrt(sum(float(ref[n].float().pow(2).sum()) for n in ref))
+    return num / den if den > 0 else (0.0 if num == 0 else math.inf)
+
+
+def rank_main(argv) -> None:
+    """One rank of phase 16 (`python3 chip_smoke.py --rank R WORLD PORT
+    DIR`): gloo on cuda:0; the tp legs (bf16, int8 serve; train) on a 1 x 2
+    mesh, then the dp legs (bf16 serve; train) on 2 x 1; every reading
+    against the references in DIR/ref.pt, saved to DIR/rank<R>.pt."""
+    rank, world, port, root = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    sys.modules["jax"] = None
+    sys.modules["mtasr_tpu"] = None
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from mtasr_tpu_torch.parallel import multihost
+    from mtasr_tpu_torch.parallel.mesh import make_mesh
+    multihost.initialize(f"localhost:{port}", world, rank, backend="gloo",
+                         device="cuda:0")
+    ref = torch.load(os.path.join(root, "ref.pt"), weights_only=False)
+    train_ref = None
+    out = {}
+    for axis, shape in (("tp", (1, world)), ("dp", (world, 1))):
+        mesh = make_mesh(*shape)
+        for quant in ((False, True) if axis == "tp" else (False,)):
+            tag = f"{axis} {'int8' if quant else 'bf16'}"
+            r = ref["serve"][quant]
+            got = serve_leg(torch, mesh, quant, r)
+            parts, worst = parted(torch, got["tokens"], r["tokens"],
+                                  r["gap"])
+            out[tag] = {
+                "parted_rows": parts, "worst_gap": worst,
+                "logits_rel_l2": float((got["logits"] - r["logits"]).norm()
+                                       / r["logits"].norm()),
+                "finite": bool(torch.isfinite(got["logits"]).all()),
+                **{k: got[k] for k in ("rtfx", "wall", "collective_share",
+                                       "counts", "checks")}}
+        got = train_leg(torch, mesh)
+        if rank == 0:
+            if train_ref is None:
+                train_ref = torch.load(os.path.join(root, "train_ref.pt"),
+                                       weights_only=False)
+            table = [n for n in train_ref["grads"] if "rel_attn_embed" in n]
+            out[f"{axis} train"] = {
+                "grads_rel_l2": rel_l2_dicts(got["grads"],
+                                             train_ref["grads"]),
+                "rel_pos_table_rel_l2": rel_l2_dicts(
+                    {n: got["grads"][n] for n in table},
+                    {n: train_ref["grads"][n] for n in table}),
+                "params_rel_l2": rel_l2_dicts(got["params"],
+                                              train_ref["params"]),
+                "update_rel_l2": rel_l2_dicts(
+                    {n: got["params"][n] - train_ref["before"][n]
+                     for n in train_ref["before"]},
+                    {n: train_ref["params"][n] - train_ref["before"][n]
+                     for n in train_ref["before"]}),
+                "same_names": sorted(got["params"]) == sorted(
+                    train_ref["params"]),
+                **{k: got[k] for k in ("loss", "grad_norm", "ms",
+                                       "collective_share", "peak_gib",
+                                       "counts")}}
+        else:
+            out[f"{axis} train"] = {k: got[k] for k in (
+                "ms", "collective_share", "peak_gib", "counts")}
+        del got
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def launch_ranks(torch, root: str) -> list:
+    """Phase 16's ranks, started together and joined with PAR_TIMEOUT:
+    any rank that fails, or does not end in time, fails the phase (the
+    others are killed)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    logs = [open(os.path.join(root, f"rank{r}.log"), "w+")
+            for r in range(PAR_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         str(PAR_WORLD), str(port), root], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(PAR_WORLD)]
+    deadline = time.monotonic() + PAR_TIMEOUT
+    while any(p.poll() is None for p in procs):
+        if time.monotonic() > deadline or any(
+                p.poll() not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            logs[r].seek(0)
+            say(f"--- parallel rank {r} (exit {procs[r].returncode}) ---\n"
+                + logs[r].read()[-4000:])
+        fail(f"parallel: rank(s) {bad} failed or did not end within "
+             f"{PAR_TIMEOUT} s")
+    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+            for r in range(PAR_WORLD)]
+
+
+def nccl_world1_leg(torch, card: str, root: str) -> None:
+    """16d: the inference CLI under `torch.distributed.run
+    --nproc_per_node 1` (NCCL, world size 1, cuda:LOCAL_RANK) on a saved
+    full-width directory writes the `decod` of the same CLI in this
+    process."""
+    from mtasr_tpu_torch.cli import inference_asr
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.utils import model_io
+    cfg, model, tr = full_width.build(SEED, "cuda", torch.bfloat16)
+    d = os.path.join(root, "model")
+    model_io.save_model(d, cfg, model)
+    tr.tokenizer.save(os.path.join(d, "char_tokenizer.json"))
+    del cfg, model, tr
+    torch.cuda.empty_cache()
+    data, _ = kaldi_dir(root, BATCH, AUDIO_S, PAR_SEED)
+    flags = ["--model_name_or_path", d, "--data_dir", data, "--batch_size",
+             str(BATCH), "--max_length", str(MAX_NEW)]
+    t0 = time.perf_counter()
+    inference_asr.main(flags + ["--output_dir", os.path.join(root, "one")])
+    dt_one = time.perf_counter() - t0
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "mtasr_tpu_torch.cli.inference_asr",
+         *flags, "--output_dir", os.path.join(root, "nccl")],
+        cwd=here, env=dict(os.environ, PYTHONPATH=here),
+        capture_output=True, text=True, timeout=PAR_TIMEOUT)
+    dt_run = time.perf_counter() - t0
+    log = run.stdout + run.stderr
+    files = {}
+    for tag in ("one", "nccl"):
+        path = os.path.join(root, tag, "decod")
+        files[tag] = open(path).read() if os.path.exists(path) else None
+    nccl = "(nccl)" in log
+    say(f"parallel 16d: inference_asr under torch.distributed.run "
+        f"--nproc_per_node 1: exit {run.returncode}, NCCL process group "
+        f"{nccl}, {dt_run:.1f} s (one process {dt_one:.1f} s), decod equal "
+        f"{files['one'] == files['nccl']} ({BATCH} x {AUDIO_S} s) [{card}]")
+    if run.returncode != 0 or not nccl or files["one"] is None or \
+            files["one"] != files["nccl"]:
+        say(log[-4000:])
+        fail("parallel 16d: the NCCL run of the inference CLI differs from "
+             "one process")
+
+
+def parallel_phase(torch, card: str, launches) -> None:
+    """Phase 16 (module docstring): the single-process references, then
+    PAR_WORLD ranks on cuda:0 over gloo (16a tp serve bf16 + int8, 16c tp
+    train, 16b dp serve, 16c dp train), then 16d; every reading printed
+    before any is gated. The ranks' launch counts go into `launches`."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="parallel_smoke_")
+    ref = {"serve": {q: serve_leg(torch, None, q) for q in (False, True)}}
+    torch.save(ref, os.path.join(root, "ref.pt"))
+    train_ref = train_leg(torch, None)
+    torch.save(train_ref, os.path.join(root, "train_ref.pt"))
+    ms_one, yard = train_ref["ms"], train_ref["yardstick"]
+    del train_ref
+    torch.cuda.synchronize()
+    ranks = launch_ranks(torch, root)
+    over = []
+    for tag, got in ranks[0].items():
+        for r, res in enumerate(ranks):
+            for name, n in res[tag]["counts"].items():
+                launches[name] += n
+        if tag.endswith("train"):
+            g = got
+            say(f"parallel {tag}: grads rel_l2 {g['grads_rel_l2']:.5g} "
+                f"(rel-pos table {g['rel_pos_table_rel_l2']:.5g}, tol "
+                f"{REL_POS_TOL}; one process's kernels vs plain "
+                f"{yard[0]:.5g}, its table {yard[1]:.5g}), "
+                f"parameters after the step rel_l2 {g['params_rel_l2']:.5g} "
+                f"(the update alone {g['update_rel_l2']:.5g}, reported) vs "
+                f"one process (tol {GRAD_TOL}); loss {g['loss']:.5f} grad "
+                f"norm {g['grad_norm']:.5f}; {g['ms']:.1f} ms/step vs "
+                f"{ms_one:.1f} one process, collectives "
+                f"{g['collective_share']:.3f} of a clocked step; peak "
+                f"{[round(res[tag]['peak_gib'], 2) for res in ranks]} GiB; "
+                f"launches {[res[tag]['counts'] for res in ranks]} B="
+                f"{TRAIN_BATCH} [{card}]")
+            tols = {"grads_rel_l2": GRAD_TOL, "params_rel_l2": GRAD_TOL,
+                    "rel_pos_table_rel_l2": REL_POS_TOL}
+            bad = [k for k, tol in tols.items()
+                   if not math.isfinite(g[k]) or g[k] > tol]
+            if bad or not g["same_names"]:
+                over.append(f"{tag}: " + ", ".join(
+                    f"{k} {g[k]} over {tols[k]}" for k in bad))
+            want = ("conv0_fused", "flash_attention", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv", "flash_attention_bwd_dpb")
+            if any(res[tag]["counts"].get(k, 0) == 0 for res in ranks
+                   for k in want):
+                over.append(f"{tag}: kernels not launched")
+            continue
+        rtfx_one = ref["serve"]["int8" in tag]["rtfx"]
+        for r, res in enumerate(ranks):
+            g = res[tag]
+            say(f"parallel {tag} rank {r}: tokens part from one process's "
+                f"in {g['parted_rows']} rows (largest top-2 gap there "
+                f"{g['worst_gap']:.5f}, TIE_TOL {TIE_TOL}); logits of the "
+                f"prefill + {GATE_STEPS} steps rel_l2 {g['logits_rel_l2']:.5g}"
+                f" (tol {LOGITS_TOL}); kernels on their served inputs "
+                f"{ {k: (round(e, 6), round(t, 6), s) for k, (e, t, s) in g['checks'].items()} }"
+                f"; RTFx {g['rtfx']:.2f} vs {rtfx_one:.2f} one process, "
+                f"collectives {g['collective_share']:.3f} of a clocked call; "
+                f"launches {g['counts']} B={BATCH} [{card}]")
+            if g["worst_gap"] > TIE_TOL or not g["finite"] or \
+                    g["logits_rel_l2"] > LOGITS_TOL:
+                over.append(f"{tag} rank {r}: gap {g['worst_gap']}, logits "
+                            f"{g['logits_rel_l2']}")
+            want = {"conv0_fused", "flash_attention",
+                    "decode_attention_int8" if "int8" in tag
+                    else "decode_attention"}
+            if set(g["checks"]) != want - {"conv0_fused"} or \
+                    any(g["counts"].get(k, 0) == 0 for k in want):
+                over.append(f"{tag} rank {r}: kernels {g['counts']}")
+    nccl_world1_leg(torch, card, root)
+    shutil.rmtree(root, ignore_errors=True)
+    say(f"parallel: phase wall {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    if over:
+        fail("parallel: " + "; ".join(over))
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2:])      # one rank of phase 16
+        return
     # the port stands alone: importing JAX or the JAX package now fails
     sys.modules["jax"] = None
     sys.modules["mtasr_tpu"] = None
@@ -2486,6 +2909,14 @@ def main() -> None:
         say(f"decoding: launches {launches} (phase 15 alone: no kernels "
             "record)")
         print(json.dumps({"ok": True, "only": "decoding"}), flush=True)
+        return
+
+    if "--only-parallel" in sys.argv[1:]:
+        launches = dict.fromkeys(kernels.WRAPPERS, 0)
+        parallel_phase(torch, card, launches)
+        say(f"parallel: launches {launches} (phase 16 alone: no kernels "
+            "record)")
+        print(json.dumps({"ok": True, "only": "parallel"}), flush=True)
         return
 
     if "--only-family" in sys.argv[1:]:
@@ -2600,6 +3031,9 @@ def main() -> None:
 
     # -- beam search and speculative decoding ------------------------------
     decoding_phase(torch, card, launches, records, rtfx_bf16)
+
+    # -- data and tensor parallelism -----------------------------------------
+    parallel_phase(torch, card, launches)
 
     records = list(records.values())
     for r in records:

@@ -15,6 +15,12 @@ quantize it in place (`utils.quantize.quantize_for_serving(model,
 
 Inputs are normalised and batched on the host (`data/`), decoded on the
 model's device, and come back in input order whatever the batching.
+
+Under `torch.distributed.run` every rank calls `from_pretrained(...,
+dp_size, tp_size)` and the same `transcribe` with the same inputs: the
+model is loaded whole, sharded over the dp x tp grid
+(`parallel/mesh.py`), each dp index decodes its rows of every batch and
+every rank returns the whole result list, as JAX's one SPMD result.
 """
 from __future__ import annotations
 
@@ -35,13 +41,10 @@ from mtasr_tpu_torch.data.tokenizer import (
 )
 from mtasr_tpu_torch.generate.beam import beam_generate
 from mtasr_tpu_torch.generate.engine import generate, generate_ctc
+from mtasr_tpu_torch.parallel.mesh import make_mesh, shard_model
 from mtasr_tpu_torch.utils.wer import clean_decoded_text
 
 AudioInput = Union[str, np.ndarray]
-
-MESH_TODO = ("data and tensor parallelism are not ported yet (ROADMAP.md "
-             "queue 1, item 8: multi-GPU); use dp_size -1 or 1 and "
-             "tp_size 1")
 
 
 def resolve_tokenizer(model_dir: Optional[str],
@@ -88,8 +91,12 @@ class Transcriber:
     def __init__(self, cfg: SpeechEncoderDecoderConfig,
                  model: torch.nn.Module, tokenizer, *,
                  gen: Optional[GenerationConfig] = None,
-                 dc: Optional[DataConfig] = None):
+                 dc: Optional[DataConfig] = None, mesh=None):
+        """`mesh`: a dp x tp `parallel.mesh.Mesh` to shard the (whole)
+        model over."""
         self.cfg = cfg
+        if mesh is not None:
+            shard_model(model, cfg, mesh)
         self.model = model
         self.tokenizer = tokenizer
         self.gen = gen or GenerationConfig(do_sample=False)
@@ -109,15 +116,16 @@ class Transcriber:
         package): quantize none / w8 / w8a8 (the decoder, streamed),
         kv_quant for the int8 KV cache, `instruct` to override the saved
         config's, the tokenizer by `resolve_tokenizer`. On `device`: the
-        card unless the caller asks for the CPU."""
-        if dp_size not in (-1, 1) or tp_size != 1:
-            raise NotImplementedError(MESH_TODO)
+        card unless the caller asks for the CPU. dp_size x tp_size must
+        cover the process group's ranks (dp_size -1: world // tp_size); the
+        model is loaded whole and sharded over them."""
+        mesh = make_mesh(dp_size, tp_size)
         cfg, model = load_for_serving(model_dir, quantize, device=device)
         if instruct is not None:
             cfg.instruct = instruct
         g = gen or GenerationConfig(do_sample=False, kv_quant=kv_quant)
         return cls(cfg, model, resolve_tokenizer(model_dir, tokenizer_name,
-                                                 cfg), gen=g)
+                                                 cfg), gen=g, mesh=mesh)
 
     # -- input prep ----------------------------------------------------------
     def _prompt_ids(self, prompt: str) -> List[int]:

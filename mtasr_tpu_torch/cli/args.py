@@ -3,20 +3,39 @@ the same flags, defaults and types), plus `--device`.
 
 Flags of parts the port does not run keep their place; `refuse_unported`
 raises with the reason (the ROADMAP item) when one is set away from its
-default."""
+default. `setup_distributed` joins a `torch.distributed.run` launch and
+lays its ranks out as `--dp_size` x `--tp_size`."""
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch
+
+from mtasr_tpu_torch.parallel import multihost
+from mtasr_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 # flag -> (its default, why the port refuses another value)
 UNPORTED = {
     "pipelined": (False, "not ported: ROADMAP queue 1 item 2's CUDA-graph "
                          "step takes its place"),
-    "dp_size": ((-1, 1), "not ported yet (ROADMAP.md queue 1, item 8: "
-                         "multi-GPU)"),
-    "tp_size": (1, "not ported yet (ROADMAP.md queue 1, item 8: "
-                   "multi-GPU)"),
 }
+
+
+def setup_distributed(args: argparse.Namespace):
+    """(device, mesh) of this process. Under `torch.distributed.run`
+    (`LOCAL_RANK` set) `--device cuda` means `cuda:LOCAL_RANK` (an index
+    past the cards fails loudly) and the process group is joined, NCCL on
+    the card and gloo with `--device cpu`; the mesh is `--dp_size` x
+    `--tp_size` over its ranks (`--dp_size -1`: world // tp), and one
+    that does not cover the ranks raises."""
+    device = torch.device(args.device)
+    local = os.environ.get("LOCAL_RANK")
+    if local is not None and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(local))
+    multihost.initialize(device=device)
+    mesh: Mesh = make_mesh(args.dp_size, args.tp_size)
+    return str(device), mesh
 
 
 def refuse_unported(args: argparse.Namespace) -> None:

@@ -22,7 +22,7 @@ import torch
 from mtasr_tpu_torch.api import resolve_tokenizer
 from mtasr_tpu_torch.cli.args import (
     add_data_args, add_device_arg, add_generation_args, add_model_args,
-    add_training_args, csv, refuse_unported,
+    add_training_args, csv, refuse_unported, setup_distributed,
 )
 from mtasr_tpu_torch.config import (
     DataConfig, GenerationConfig, TrainingConfig,
@@ -32,6 +32,8 @@ from mtasr_tpu_torch.data.pipeline import (
     batches_from_examples, prepare_examples,
 )
 from mtasr_tpu_torch.data.tokenizer import CharTokenizer
+from mtasr_tpu_torch.parallel import multihost
+from mtasr_tpu_torch.parallel.mesh import gather_state_dict
 from mtasr_tpu_torch.train.checkpoint import load_partial, resume_or_raise
 from mtasr_tpu_torch.train.lora import init_decoder_lora, merge_decoder_lora
 from mtasr_tpu_torch.train.loop import Trainer
@@ -92,7 +94,7 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     refuse_unported(args)
-    device = args.device
+    device, mesh = setup_distributed(args)
 
     resume_or_raise(args.output_dir, overwrite=args.overwrite_output_dir)
 
@@ -132,7 +134,8 @@ def main(argv=None):
         max_grad_norm=args.max_grad_norm, logging_steps=args.logging_steps,
         eval_steps=args.eval_steps, save_steps=args.save_steps,
         save_total_limit=args.save_total_limit, seed=args.seed,
-        bf16=args.bf16, pcgrad=args.pcgrad, dp_size=1, tp_size=1)
+        bf16=args.bf16, pcgrad=args.pcgrad, dp_size=mesh.dp,
+        tp_size=mesh.tp)
 
     splits = data_splits(args)
     train_utts = load_kaldi_dir(splits["train"], prompt=args.prompt)
@@ -159,14 +162,17 @@ def main(argv=None):
         partial_encoder_unfreeze=csv(args.partial_encoder_unfreeze),
         partial_decoder_unfreeze=csv(args.partial_decoder_unfreeze),
         partial_others_unfreeze=csv(args.partial_others_unfreeze))
-    batch = tc.per_device_train_batch_size
+    # the global batch (`finetune_asr.py:160` of the JAX CLI); every rank
+    # assembles it and keeps its rows
+    batch = tc.per_device_train_batch_size * mesh.dp
     steps_per_epoch = max(1, -(-len(train_ex) // batch))
     total_steps = (tc.max_steps if tc.max_steps > 0
                    else int(steps_per_epoch * tc.num_train_epochs))
     trainer = Trainer(cfg, tc, dc, model, tokenizer=tokenizer,
                       freeze_kwargs=freeze_kwargs,
                       gen_cfg=GenerationConfig(max_length=args.max_length),
-                      total_steps=total_steps)
+                      total_steps=total_steps,
+                      mesh=mesh)
     trainer.maybe_resume()
 
     eval_refs = {u.utt_id: (u.text.lower() if dc.do_lower_case else u.text)
@@ -186,14 +192,22 @@ def main(argv=None):
 
     trainer.train(train_iter, eval_iter if eval_ex else None, eval_refs)
 
+    writer = multihost.process_index() == 0
+
+    def save_whole(path: str) -> None:
+        # every rank gathers its tp slices; rank 0 writes
+        flat = gather_state_dict(model_io.flat_state(model), model)
+        if writer:
+            model_io.save_model(path, cfg, flat)
+
     if getattr(model, "decoder_lora", None) is not None:
-        model_io.save_model(os.path.join(args.output_dir, "model_unmerge"),
-                            cfg, model)
+        save_whole(os.path.join(args.output_dir, "model_unmerge"))
         merge_decoder_lora(model)
     final_dir = os.path.join(args.output_dir, "final")
-    model_io.save_model(final_dir, cfg, model)
-    if isinstance(tokenizer, CharTokenizer):
+    save_whole(final_dir)
+    if writer and isinstance(tokenizer, CharTokenizer):
         tokenizer.save(os.path.join(final_dir, "char_tokenizer.json"))
+    multihost.barrier("saved")
     logger.info("saved final model to %s", final_dir)
     return trainer
 

@@ -22,7 +22,7 @@ import torch
 from mtasr_tpu_torch.api import load_for_serving, resolve_tokenizer
 from mtasr_tpu_torch.cli.args import (
     add_data_args, add_device_arg, add_generation_args, add_model_args,
-    refuse_unported,
+    refuse_unported, setup_distributed,
 )
 from mtasr_tpu_torch.config import DataConfig, GenerationConfig
 from mtasr_tpu_torch.data.audio import load_kaldi_dir
@@ -31,6 +31,8 @@ from mtasr_tpu_torch.data.pipeline import (
 )
 from mtasr_tpu_torch.generate.beam import beam_generate
 from mtasr_tpu_torch.generate.engine import generate, generate_ctc
+from mtasr_tpu_torch.parallel import multihost
+from mtasr_tpu_torch.parallel.mesh import shard_model
 from mtasr_tpu_torch.utils.wer import Calculator, clean_decoded_text
 
 logger = logging.getLogger("mtasr_tpu_torch.inference")
@@ -119,11 +121,13 @@ def main(argv=None):
         print(merge_and_score(args))
         return
 
-    device = args.device
+    device, mesh = setup_distributed(args)
     cfg, model = load_for_serving(args.model_name_or_path, args.quantize,
                                   args.quantize_scope, device=device)
     if args.instruct:
         cfg.instruct = True
+    shard_model(model, cfg, mesh)
+    writer = multihost.process_index() == 0
     tokenizer = resolve_tokenizer(args.model_name_or_path,
                                   args.tokenizer_name, cfg)
 
@@ -150,10 +154,12 @@ def main(argv=None):
         sampler.manual_seed(0)
 
     n_done = 0
-    with open(os.path.join(args.output_dir,
-                           f"label.{args.shard_index}"), "w") as label_f, \
-            open(os.path.join(args.output_dir,
-                              f"decod.{args.shard_index}"), "w") as decod_f:
+    out_dir = args.output_dir if writer else os.devnull
+    label_path = os.path.join(out_dir, f"label.{args.shard_index}")
+    decod_path = os.path.join(out_dir, f"decod.{args.shard_index}")
+    if not writer:
+        label_path = decod_path = os.devnull
+    with open(label_path, "w") as label_f, open(decod_path, "w") as decod_f:
         for batch in batches_from_examples(
                 examples, cfg, dc, args.batch_size, training=False,
                 shuffle=False, drop_last=False,
@@ -185,8 +191,9 @@ def main(argv=None):
             n_done += len(batch.utt_ids)
             logger.info("decoded %d utts", n_done)
 
-    if args.num_shards == 1:
+    if args.num_shards == 1 and writer:
         print(merge_and_score(args))
+    multihost.barrier("decoded")
 
 
 if __name__ == "__main__":

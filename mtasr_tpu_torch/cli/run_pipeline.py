@@ -13,13 +13,16 @@
         --init_random tiny [--stage 1 --stop_stage 6] [--device cpu]
 
 The run directory's name encodes the configuration (`encode_run_name`).
-Data and tensor parallelism (`--dp_size` other than -1 or 1, `--tp_size`
-other than 1) are refused before any stage runs.
+With `--dp_size` x `--tp_size` above one process (`--dp_size -1`: one dp
+index), stages 3-6 run their CLI on that many ranks, through
+`python -m torch.distributed.run --standalone --nproc_per_node N`; the
+other stages, and the merge of stage 6, run in this process.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 import sys
 
 from mtasr_tpu_torch.cli.args import add_device_arg, refuse_unported
@@ -74,8 +77,27 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
+def n_ranks(args) -> int:
+    """The processes a parallel stage runs on: dp x tp (dp -1 counts as
+    one)."""
+    return max(1, args.dp_size) * max(1, args.tp_size)
+
+
+def run_cli(module: str, flags, nproc: int) -> None:
+    """`module`'s main(flags) in this process, or, on more than one rank,
+    under `torch.distributed.run` (a failed rank fails the stage)."""
+    if nproc == 1:
+        import importlib
+        importlib.import_module(module).main(flags)
+        return
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), "-m", module] + list(flags)
+    subprocess.run(cmd, check=True)
+
+
 def run_stage(args, stage: int, model_dir: str, exp_dir: str) -> None:
     common = ["--device", args.device]
+    nproc = n_ranks(args)
     if args.talker_ctc:
         common.append("--talker_ctc")
     if args.instruct:
@@ -108,7 +130,6 @@ def run_stage(args, stage: int, model_dir: str, exp_dir: str) -> None:
         m(flags)
 
     elif stage == 3:
-        from mtasr_tpu_torch.cli.finetune_asr import main as m
         flags = ["--model_name_or_path", model_dir,
                  "--data_dir", args.data_dir, "--output_dir", exp_dir,
                  "--train_mode", args.train_mode,
@@ -122,10 +143,12 @@ def run_stage(args, stage: int, model_dir: str, exp_dir: str) -> None:
         if args.ctc_bridge:
             flags += ["--ctc_bridge", "--ctc_bridge_type",
                       args.ctc_bridge_type]
-        m(flags + xattn + tok)
+        run_cli("mtasr_tpu_torch.cli.finetune_asr", flags + xattn + tok,
+                nproc)
 
     elif stage in (4, 5, 6):
         from mtasr_tpu_torch.cli.inference_asr import main as m
+        infer = "mtasr_tpu_torch.cli.inference_asr"
         data = (args.eval_data_dir if stage == 5 and args.eval_data_dir
                 else args.data_dir)
         dec_dir = os.path.join(exp_dir, f"decode_stage{stage}")
@@ -137,11 +160,12 @@ def run_stage(args, stage: int, model_dir: str, exp_dir: str) -> None:
                 "--num_beams", str(args.num_beams)] + common + tok
         if stage == 6 and args.num_shards > 1:
             for shard in range(args.num_shards):
-                m(base + ["--shard_index", str(shard),
-                          "--num_shards", str(args.num_shards)])
+                run_cli(infer, base + ["--shard_index", str(shard),
+                                       "--num_shards", str(args.num_shards)],
+                        nproc)
             m(base + ["--num_shards", str(args.num_shards), "--merge"])
         else:
-            m(base)
+            run_cli(infer, base, nproc)
         wer_path = os.path.join(dec_dir, "wer")
         if os.path.exists(wer_path):
             with open(wer_path) as f:

@@ -46,6 +46,7 @@ from mtasr_tpu_torch.models.llama import KVCache, embed_tokens, llama_forward
 from mtasr_tpu_torch.models.speech_encoder_decoder import (
     EncodedSpeech, SpeechEncoderDecoderModel, adapter_callback,
 )
+from mtasr_tpu_torch.parallel.mesh import dp_rows, gather_rows, take_rows
 from mtasr_tpu_torch.train.lora import merged
 
 NEG_INF = -1.0e7     # the pool's "no hypothesis" score, as in the JAX module
@@ -272,13 +273,26 @@ def beam_generate(model: SpeechEncoderDecoderModel,
     """Beam search over `num_beams` beams an input; `kv_quant` an int8 KV
     cache, `encode_chunk` the encode in chunks of rows (the JAX
     `Transcriber` drops it on this route; the port passes it). A decoder
-    LoRA decodes folded into the weights (`train.lora.merged`)."""
+    LoRA decodes folded into the weights (`train.lora.merged`). On a dp x
+    tp mesh each dp index searches its rows (`engine.generate`'s split)
+    and every rank returns the whole batch."""
+    mesh = getattr(model, "mesh", None)
+    rows = dp_rows(mesh, input_values.shape[0])
+    input_values, audio_mask, prompt_ids = (
+        take_rows(x, rows) for x in (input_values, audio_mask, prompt_ids))
     B = input_values.shape[0]
     with merged(model), torch.inference_mode():
         enc = encode_maybe_chunked(model, cfg, input_values, audio_mask,
                                    encode_chunk)
         prefill_ids, splice_index = prompt_layout(cfg, B, prompt_ids,
                                                   input_values.device)
-        return _beam(model, cfg, enc, prefill_ids, splice_index,
-                     int(num_beams), int(max_new_tokens),
-                     float(length_penalty), bool(kv_quant))
+        out = _beam(model, cfg, enc, prefill_ids, splice_index,
+                    int(num_beams), int(max_new_tokens),
+                    float(length_penalty), bool(kv_quant))
+    if rows is None:
+        return out
+    return BeamOutput(
+        sequences=gather_rows(out.sequences, mesh, rows,
+                              pad_value=cfg.pad_token_id),
+        scores=gather_rows(out.scores, mesh, rows),
+        lengths=gather_rows(out.lengths, mesh, rows), steps=out.steps)

@@ -14,6 +14,16 @@ the extra steps change no output.
 
 `generate_ctc` is the one-shot CTC decode: each CTC head's collapsed argmax
 path on its separated stream, no decoder.
+
+A model sharded over a dp x tp mesh (`parallel/mesh.py::shard_model`)
+takes the whole batch on every rank: each dp index decodes its own
+contiguous rows (all of them when the batch does not divide by dp), the
+ranks of a tp group decode the same rows in step (their full logits are
+the same, so they pick the same tokens), and the outputs are gathered
+back in input order, every rank holding all of them. With sampling the
+dp indices step together: each step's logits are gathered over dp and
+the tokens drawn once for the whole batch from `generator`, then sliced,
+so dp = 2 draws what one process draws.
 """
 from __future__ import annotations
 
@@ -27,12 +37,14 @@ import torch
 
 from mtasr_tpu_torch.config import GenerationConfig, SpeechEncoderDecoderConfig
 from mtasr_tpu_torch.models.llama import (
-    KVCache, embed_tokens, llama_forward, lm_head,
+    KVCache, embed_tokens, llama_forward, lm_head, local_kv_heads,
 )
 from mtasr_tpu_torch.models.speech_encoder_decoder import (
     EncodedSpeech, SpeechEncoderDecoderModel, adapter_callback,
     encode_speech, forward_ctc,
 )
+from mtasr_tpu_torch.parallel.collectives import all_gather, all_reduce
+from mtasr_tpu_torch.parallel.mesh import dp_rows, gather_rows, take_rows
 from mtasr_tpu_torch.train.lora import merged
 
 EOS_CHECK_EVERY = 8
@@ -134,6 +146,33 @@ def _sample_token(logits: torch.Tensor, gen: GenerationConfig,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+class _Picker:
+    """The decode loop's token choice and its all-done test. In one
+    process (or greedy, or one dp index) `_sample_token` and
+    `done.all()`; sampling over several dp indices draws once for the
+    gathered batch and slices this index's rows, and every dp index stops
+    together."""
+
+    def __init__(self, gen: GenerationConfig,
+                 generator: Optional[torch.Generator], mesh=None,
+                 rows: Optional[slice] = None):
+        self.gen, self.generator = gen, generator
+        self.group = mesh.dp_group if (gen.do_sample and rows is not None) \
+            else None
+        self.rows = rows
+
+    def __call__(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return _sample_token(logits, self.gen, self.generator)
+        full = all_gather(logits, self.group, 0)
+        return _sample_token(full, self.gen, self.generator)[self.rows]
+
+    def all_done(self, done: torch.Tensor) -> bool:
+        if self.group is None:
+            return bool(done.all())
+        return int(all_reduce((~done).sum(), self.group)) == 0
+
+
 def _prefill(model: SpeechEncoderDecoderModel,
              cfg: SpeechEncoderDecoderConfig, enc: EncodedSpeech,
              prefill_ids: torch.Tensor, splice_index: int, S_max: int,
@@ -169,7 +208,8 @@ def _prefill(model: SpeechEncoderDecoderModel,
                                idx - Ts + n_valid[:, None])
 
     cache = KVCache.init(dec_cfg, B, S_max, dtype=speech.dtype, device=device,
-                         quantized=kv_quant)
+                         quantized=kv_quant,
+                         kv_heads=local_kv_heads(dec, dec_cfg))
     if Lp > splice_index:
         # the last suffix token is the last real element of every row
         logits, cache = llama_forward(
@@ -196,20 +236,23 @@ def _decode(model: SpeechEncoderDecoderModel,
             total_prefill: int, dtype: torch.dtype, gen: GenerationConfig,
             max_new_tokens: int,
             generator: Optional[torch.Generator],
-            layer_callback=None) -> GenerateOutput:
+            layer_callback=None, pick: Optional[_Picker] = None
+            ) -> GenerateOutput:
     """The step loop after the prefill; `layer_callback` the prefill's
-    (the adapters, with the memory keys and values it kept)."""
+    (the adapters, with the memory keys and values it kept); `pick` the
+    token choice (`_Picker`; by default this batch's own)."""
     dec, dec_cfg = model.decoder, cfg.decoder
     B = last_logits.shape[0]
     eos_id, pad_id = cfg.eos_token_id, cfg.pad_token_id
-    cur = _sample_token(last_logits, gen, generator)
+    pick = pick or _Picker(gen, generator)
+    cur = pick(last_logits)
     out = torch.full((B, max_new_tokens), pad_id, dtype=torch.long,
                      device=cur.device)
     out[:, 0] = cur
     done = cur == eos_id
     steps = 0
     for t in range(1, max_new_tokens):
-        if (t - 1) % EOS_CHECK_EVERY == 0 and bool(done.all()):
+        if (t - 1) % EOS_CHECK_EVERY == 0 and pick.all_done(done):
             break
         emb_t = embed_tokens(dec, dec_cfg, cur[:, None], dtype=dtype)
         # the token generated at step t-1 sits at position
@@ -219,8 +262,7 @@ def _decode(model: SpeechEncoderDecoderModel,
             dec, dec_cfg, emb_t, pos_t, kv_cache=cache,
             cache_offset=total_prefill + t - 1, logits_to_keep=1,
             layer_callback=layer_callback)
-        nxt = _sample_token(logits_t[:, -1], gen, generator)
-        nxt = torch.where(done, pad_id, nxt)
+        nxt = torch.where(done, pad_id, pick(logits_t[:, -1]))
         out[:, t] = nxt
         done = done | (nxt == eos_id)
         cur = nxt
@@ -246,13 +288,19 @@ def generate(model: SpeechEncoderDecoderModel,
     (greedy, the same tokens), whose verify and fallback steps and accepted
     drafts are logged. Like the JAX `generate`, it reads neither
     `num_beams` (beam search is `beam.beam_generate`) nor `use_cache`
-    (every route decodes over the KV cache)."""
+    (every route decodes over the KV cache). On a dp x tp mesh each dp
+    index decodes its rows and every rank returns the whole batch."""
     gen = gen or GenerationConfig()
+    mesh = getattr(model, "mesh", None)
+    rows = dp_rows(mesh, input_values.shape[0])
+    input_values, audio_mask, prompt_ids = (
+        take_rows(x, rows) for x in (input_values, audio_mask, prompt_ids))
     if gen.speculative:
         from mtasr_tpu_torch.generate.speculative import generate_speculative
         out, st = generate_speculative(
             model, cfg, input_values, audio_mask, prompt_ids=prompt_ids,
             gen=gen, max_new_tokens=max_new_tokens)
+        out = gather_output(out, mesh, rows, cfg.pad_token_id)
         emitted = max(int(st.emitted.sum()), 1)
         logging.getLogger("mtasr_tpu_torch.generate").info(
             "speculative: %d verify + %d fallback steps, %d/%d tokens from "
@@ -260,12 +308,25 @@ def generate(model: SpeechEncoderDecoderModel,
             st.accepted_drafts, emitted, 100.0 * st.accepted_drafts / emitted)
         return out
     with merged(model), torch.inference_mode():
-        return _generate(model, cfg, input_values, audio_mask, prompt_ids,
-                         gen, generator, max_new_tokens)
+        out = _generate(model, cfg, input_values, audio_mask, prompt_ids,
+                        gen, _Picker(gen, generator, mesh, rows),
+                        max_new_tokens)
+    return gather_output(out, mesh, rows, cfg.pad_token_id)
+
+
+def gather_output(out: GenerateOutput, mesh, rows: Optional[slice],
+                  pad_id: int) -> GenerateOutput:
+    """The dp indices' outputs in input order (as is without a dp
+    split); `steps` is this index's own."""
+    if rows is None:
+        return out
+    return GenerateOutput(
+        sequences=gather_rows(out.sequences, mesh, rows, pad_value=pad_id),
+        lengths=gather_rows(out.lengths, mesh, rows), steps=out.steps)
 
 
 def _generate(model, cfg, input_values, audio_mask, prompt_ids, gen,
-              generator, max_new_tokens) -> GenerateOutput:
+              pick, max_new_tokens) -> GenerateOutput:
     if max_new_tokens is None:
         max_new_tokens = gen.max_new_tokens or gen.max_length
     B = input_values.shape[0]
@@ -282,7 +343,7 @@ def _generate(model, cfg, input_values, audio_mask, prompt_ids, gen,
         model, cfg, enc, prefill_ids, splice_index, S_max, gen.kv_quant, cb)
     return _decode(model, cfg, cache, last_logits, n_valid, Lp,
                    total_prefill, enc.encoder_hidden_states.dtype, gen,
-                   int(max_new_tokens), generator, cb)
+                   int(max_new_tokens), pick.generator, cb, pick)
 
 
 @torch.inference_mode()
@@ -291,5 +352,11 @@ def generate_ctc(model: SpeechEncoderDecoderModel,
                  audio_mask: Optional[torch.Tensor], max_out_len: int = 150
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-shot CTC decode (`engine.py:317-323`): (transcriptions
-    [B, K * max_out_len] in head-major blocks, lengths [K, B])."""
-    return forward_ctc(model, cfg, input_values, audio_mask, max_out_len)
+    [B, K * max_out_len] in head-major blocks, lengths [K, B]); on a
+    mesh each dp index decodes its rows, gathered back in order."""
+    mesh = getattr(model, "mesh", None)
+    rows = dp_rows(mesh, input_values.shape[0])
+    trans, lens = forward_ctc(model, cfg, take_rows(input_values, rows),
+                              take_rows(audio_mask, rows), max_out_len)
+    return (gather_rows(trans, mesh, rows, pad_value=cfg.pad_token_id),
+            gather_rows(lens, mesh, rows, dim=1))

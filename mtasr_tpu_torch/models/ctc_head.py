@@ -3,6 +3,12 @@ projection `ctc_lo` to the decoder vocabulary plus the blank
 (`odim = vocab + 1`, `blank = odim - 1`) and its loss and inference
 helpers. Float32 log-softmax, reduction 'none', zero_infinity; the caller
 averages over the batch.
+
+Under tensor parallelism `ctc_lo` may be vocab-parallel (`parallel/mesh.py`:
+only when vocab + 1 divides by tp; LLaMA-3's 128265 does not): its logits
+are gathered after the product, and the fused loss, which takes the
+weight itself, gets the gathered weight and bias, so #11 / #12, the
+separator, PIT and the bridges read full widths as in one process.
 """
 from __future__ import annotations
 
@@ -11,6 +17,7 @@ from torch import nn
 
 from mtasr_tpu_torch.models.layers import linear
 from mtasr_tpu_torch.ops.ctc_fused import ctc_loss_from_hidden
+from mtasr_tpu_torch.parallel.collectives import copy_to_tp, gather_from_tp
 
 
 class CTCHead(nn.Module):
@@ -20,7 +27,10 @@ class CTCHead(nn.Module):
 
 
 def ctc_logits(head: CTCHead, hs: torch.Tensor) -> torch.Tensor:
-    return linear(head.ctc_lo, hs)
+    tp = getattr(head.ctc_lo, "tp", None)
+    if tp is None:
+        return linear(head.ctc_lo, hs)
+    return gather_from_tp(linear(head.ctc_lo, copy_to_tp(hs, tp)), tp)
 
 
 def ctc_log_softmax(head: CTCHead, hs: torch.Tensor) -> torch.Tensor:
@@ -40,6 +50,9 @@ def ctc_head_loss(head: CTCHead, hs: torch.Tensor, hlens: torch.Tensor,
     `detach_head` holds the head's parameters constant (no gradient is
     computed for them)."""
     w, b = head.ctc_lo.weight, head.ctc_lo.bias
+    tp = getattr(head.ctc_lo, "tp", None)
+    if tp is not None:
+        w, b = gather_from_tp(w, tp, 0), gather_from_tp(b, tp, 0)
     if detach_head:
         w, b = w.detach(), b.detach()
     return ctc_loss_from_hidden(hs, w, b, hlens, ys, ylens, blank_id)

@@ -16,6 +16,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mtasr_tpu_torch.ops.int8 import INV127
+from mtasr_tpu_torch.parallel.collectives import reduce_from_tp
 
 
 class QuantLinear(nn.Module):
@@ -81,6 +82,23 @@ def linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
         return y if m.bias is None else y + m.bias.to(x.dtype)
     b = m.bias.to(x.dtype) if m.bias is not None else None
     return F.linear(x, m.weight.to(x.dtype), b)
+
+
+def row_linear(m: nn.Module, x: torch.Tensor, tp,
+               partial: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A row-parallel linear: this rank's partial product (plus `partial`,
+    float32), summed over the tp group in float32, then the bias, rounded
+    once to x's dtype. `linear` itself without a group (`tp` None)."""
+    if tp is None:
+        y = linear(m, x)
+        return y if partial is None else y + partial.to(y.dtype)
+    y = F.linear(x, m.weight.to(x.dtype)).float()
+    if partial is not None:
+        y = y + partial
+    y = reduce_from_tp(y, tp)
+    if m.bias is not None:
+        y = y + m.bias.float()
+    return y.to(x.dtype)
 
 
 def embed(m: nn.Embedding, ids: torch.Tensor, dtype=None) -> torch.Tensor:

@@ -18,6 +18,20 @@ activations (`_lora_linear`: dropout on the branch input, the low-rank
 product in float32, as `mtasr_tpu/models/llama.py:177-197`) and, with
 `cfg.remat`, each layer recomputed in backward.
 
+Under tensor parallelism (`parallel/mesh.py::shard_model`) a layer's
+q/k/v and gate/up are column-parallel and o_proj and down_proj
+row-parallel, their partial products summed over the tp group in float32
+(`parallel/collectives.py`): a rank runs its attention, its KV cache and
+#4-#7 at Hq / tp and Hkv / tp heads. The embedding and the head are
+vocab-parallel: out-of-range ids are clipped first, as `embed` does, then
+each rank looks up the rows it holds and the ranks' rows are summed; the
+head's logits are gathered to the full vocabulary, which the sampler and
+argmax read as in one process. The replicated LoRA pairs enter the
+sharded region through `copy_to_tp` and are sliced there, so their
+gradients come out whole. An int8 layer is replicated (`mesh.py`): the
+int8 decoder runs its layers whole on every tp rank, #6 / #7 at all Hkv
+heads, and only its float embedding is vocab-parallel.
+
 Parameter names are the JAX tree's flat keys under `decoder.`.
 """
 from __future__ import annotations
@@ -30,7 +44,7 @@ from torch import nn
 
 from mtasr_tpu_torch.config import LlamaConfig
 from mtasr_tpu_torch.models.layers import (
-    QuantLinear, dropout, embed, linear, remat_layer,
+    QuantLinear, dropout, embed, linear, remat_layer, row_linear,
 )
 from mtasr_tpu_torch.ops.attention import dot_product_attention
 from mtasr_tpu_torch.ops.int8 import INV127
@@ -44,6 +58,9 @@ from mtasr_tpu_torch.ops.kernels.decode_attention_int8 import (
 from mtasr_tpu_torch.ops.norms import rms_norm
 from mtasr_tpu_torch.ops.rope import (
     apply_rotary_emb, compute_rope_freqs, rope_cos_sin,
+)
+from mtasr_tpu_torch.parallel.collectives import (
+    copy_to_tp, gather_from_tp, group_rank, group_size, reduce_from_tp,
 )
 
 
@@ -65,14 +82,17 @@ class KVCache:
 
     @classmethod
     def init(cls, cfg: LlamaConfig, batch: int, max_len: int,
-             dtype: torch.dtype, device, quantized: bool = False
-             ) -> "KVCache":
-        shape = (batch, max_len, cfg.num_key_value_heads * cfg.head_dim_)
+             dtype: torch.dtype, device, quantized: bool = False,
+             kv_heads: Optional[int] = None) -> "KVCache":
+        """`kv_heads`: the heads this rank holds (`local_kv_heads`; all
+        of them in one process)."""
+        kv_heads = kv_heads or cfg.num_key_value_heads
+        shape = (batch, max_len, kv_heads * cfg.head_dim_)
         n = cfg.num_hidden_layers
         buf = torch.int8 if quantized else dtype
         scales = None
         if quantized:
-            scales = [torch.zeros((batch, 2 * cfg.num_key_value_heads,
+            scales = [torch.zeros((batch, 2 * kv_heads,
                                    max_len), dtype=torch.bfloat16,
                                   device=device) for _ in range(n)]
         return cls(
@@ -168,9 +188,32 @@ class Llama(nn.Module):
         return self._rope[key]
 
 
+def local_kv_heads(dec: Llama, cfg: LlamaConfig) -> int:
+    """The kv heads this rank's cache holds: Hkv / tp where the layers'
+    attention is sharded, else Hkv."""
+    tp = getattr(dec.model.layers["0"].self_attn, "tp", None)
+    return cfg.num_key_value_heads // group_size(tp)
+
+
 def embed_tokens(dec: Llama, cfg: LlamaConfig, input_ids: torch.Tensor,
                  dtype=None) -> torch.Tensor:
-    return embed(dec.model.embed_tokens, input_ids, dtype)
+    m = dec.model.embed_tokens
+    tp = getattr(m, "tp", None)
+    if tp is None:
+        return embed(m, input_ids, dtype)
+    # vocab-parallel: clip into the whole table first, as `embed` does
+    w = m.weight if dtype is None else m.weight.to(dtype)
+    local = input_ids.clamp(0, cfg.vocab_size - 1) - m.vocab_start
+    mine = (local >= 0) & (local < w.shape[0])
+    rows = w[local.clamp(0, w.shape[0] - 1)]
+    return reduce_from_tp(torch.where(mine[..., None], rows,
+                                      torch.zeros_like(rows)), tp)
+
+
+def embed_table(dec: Llama) -> torch.Tensor:
+    """The whole embedding table (gathered where it is vocab-parallel)."""
+    m = dec.model.embed_tokens
+    return gather_from_tp(m.weight, getattr(m, "tp", None), dim=0)
 
 
 def lm_head(dec: Llama, cfg: LlamaConfig,
@@ -178,21 +221,48 @@ def lm_head(dec: Llama, cfg: LlamaConfig,
     head = getattr(dec, "lm_head", None)
     if isinstance(head, QuantLinear):   # a quantized head wins, tied or not
         return linear(head, hidden)
-    w = head.weight if head is not None else dec.model.embed_tokens.weight
-    return hidden @ w.to(hidden.dtype).t()
+    owner = head if head is not None else dec.model.embed_tokens
+    tp = getattr(owner, "tp", None)
+    if tp is not None:   # vocab-parallel: gathered to the full logits
+        local = copy_to_tp(hidden, tp) @ owner.weight.to(hidden.dtype).t()
+        return gather_from_tp(local, tp, dim=-1)
+    return hidden @ owner.weight.to(hidden.dtype).t()
+
+
+def _head_slice(n_out: int, tp) -> slice:
+    n = n_out // group_size(tp)
+    r = group_rank(tp)
+    return slice(r * n, (r + 1) * n)
 
 
 def _lora_linear(m: nn.Module, x: torch.Tensor, ab: Optional[nn.Module],
                  scale: float, generator: Optional[torch.Generator],
-                 rate: float) -> torch.Tensor:
+                 rate: float, tp=None, row: bool = False) -> torch.Tensor:
     """linear() plus the PEFT LoRA branch y += scale * B(A(drop(x))),
-    dropout on the branch input only, the branch in float32."""
+    dropout on the branch input only, the branch in float32. Under a tp
+    group the linear is column-parallel (its B's rows sliced) or, with
+    `row`, row-parallel (its A's columns sliced; the branch's partial
+    joins the product's before the sum)."""
+    if tp is None:
+        y = linear(m, x)
+        if ab is None:
+            return y
+        xl = dropout(x.float(), rate, generator)
+        delta = (xl @ ab.lora_A.float().t()) @ ab.lora_B.float().t()
+        return y + (delta * scale).to(y.dtype)
+    delta = None
+    if ab is not None:
+        a, b = copy_to_tp(ab.lora_A, tp), copy_to_tp(ab.lora_B, tp)
+        xl = dropout(x.float(), rate, generator)
+        if row:
+            a = a[:, _head_slice(a.shape[1], tp)]
+        else:
+            b = b[_head_slice(b.shape[0], tp)]
+        delta = ((xl @ a.float().t()) @ b.float().t()) * scale
+    if row:
+        return row_linear(m, x, tp, delta)
     y = linear(m, x)
-    if ab is None:
-        return y
-    xl = dropout(x.float(), rate, generator)
-    delta = (xl @ ab.lora_A.float().t()) @ ab.lora_B.float().t()
-    return y + (delta * scale).to(y.dtype)
+    return y if delta is None else y + delta.to(y.dtype)
 
 
 def _attention(att: _SelfAttention, cfg: LlamaConfig, x: torch.Tensor,
@@ -203,14 +273,17 @@ def _attention(att: _SelfAttention, cfg: LlamaConfig, x: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                lora_dropout: float = 0.0) -> torch.Tensor:
     B, L, _ = x.shape
-    D, Hq, Hkv = cfg.head_dim_, cfg.num_attention_heads, \
-        cfg.num_key_value_heads
+    tp = getattr(att, "tp", None)
+    D = cfg.head_dim_
+    Hq = cfg.num_attention_heads // group_size(tp)
+    Hkv = cfg.num_key_value_heads // group_size(tp)
+    x = copy_to_tp(x, tp)
 
     def proj(name, inp):
         ab = getattr(lora_layer, name, None) if lora_layer is not None \
             else None
         return _lora_linear(getattr(att, name), inp, ab, lora_scale,
-                            generator, lora_dropout)
+                            generator, lora_dropout, tp, name == "o_proj")
 
     q = proj("q_proj", x).reshape(B, L, Hq, D)
     k = proj("k_proj", x).reshape(B, L, Hkv, D)
@@ -253,7 +326,7 @@ def _attention(att: _SelfAttention, cfg: LlamaConfig, x: torch.Tensor,
             kd = kd * kvs[:, 0::2].transpose(1, 2)[..., None].to(x.dtype)
             vd = vd * kvs[:, 1::2].transpose(1, 2)[..., None].to(x.dtype)
         out = dot_product_attention(q, kd, vd, mask=mask, scale=D ** -0.5)
-    return linear(att.o_proj, out.reshape(B, L, Hq * D))
+    return row_linear(att.o_proj, out.reshape(B, L, Hq * D), tp)
 
 
 def lora_layer(lora: Optional[nn.Module], idx: int) -> Optional[nn.Module]:
@@ -265,8 +338,10 @@ def lora_layer(lora: Optional[nn.Module], idx: int) -> Optional[nn.Module]:
 
 
 def _mlp(mlp: _MLP, x: torch.Tensor) -> torch.Tensor:
-    return linear(mlp.down_proj, torch.nn.functional.silu(
-        linear(mlp.gate_proj, x)) * linear(mlp.up_proj, x))
+    tp = getattr(mlp, "tp", None)
+    x = copy_to_tp(x, tp)
+    return row_linear(mlp.down_proj, torch.nn.functional.silu(
+        linear(mlp.gate_proj, x)) * linear(mlp.up_proj, x), tp)
 
 
 def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,

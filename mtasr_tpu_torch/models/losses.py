@@ -2,6 +2,10 @@
 cross-entropy of the teacher-forced decoder, the serialized CTC of the K
 separated streams (fixed assignment or PIT), and the hybrid
 alpha * CE + (1 - alpha) * CTC.
+
+Within a data-parallel step (`parallel/collectives.py::dp_reduction`)
+every denominator is the global batch's: the valid tokens of all ranks,
+the rows of all ranks. One process divides by its own.
 """
 from __future__ import annotations
 
@@ -11,6 +15,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from mtasr_tpu_torch.models.ctc_head import CTCHead, ctc_head_loss
+from mtasr_tpu_torch.parallel.collectives import (
+    batch_mean, dp_active, global_batch, global_count,
+)
 
 
 def build_perm(n: int, mode: Optional[str], step: int = 0,
@@ -37,7 +44,7 @@ def batch_swap_stats(best_perm: torch.Tensor):
     B, K = best_perm.shape
     ident = torch.arange(K, device=best_perm.device)[None]
     cnt = (~(best_perm == ident).all(1)).sum()
-    return cnt, B, cnt / max(B, 1)
+    return cnt, B, cnt / max(global_batch(B), 1)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -50,7 +57,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp_min(1)
+    return nll.sum() / global_count(valid.sum()).clamp_min(1)
 
 
 def serialized_ctc_loss(heads: Sequence[CTCHead],
@@ -69,7 +76,7 @@ def serialized_ctc_loss(heads: Sequence[CTCHead],
                       label_spks[perm[i]], label_spk_lens[perm[i]], blank_id,
                       detach_head=detach_heads)
         for i in range(K)])
-    return per_head.mean(1).mean(), per_head
+    return batch_mean(per_head, 1).mean(), per_head
 
 
 def pit_ctc_loss(heads: Sequence[CTCHead],
@@ -92,7 +99,9 @@ def pit_ctc_loss(heads: Sequence[CTCHead],
     best_perm = perms[perm_losses.argmin(0)]                  # [B, K]
     assigned = pair.permute(2, 0, 1).gather(
         2, best_perm[:, :, None])[..., 0].t()                 # [K, B]
-    return assigned.mean(), assigned, best_perm
+    loss = batch_mean(assigned, 1).mean() if dp_active() \
+        else assigned.mean()
+    return loss, assigned, best_perm
 
 
 def hybrid_loss(mode: str, alpha: float, *,

@@ -36,7 +36,9 @@ from mtasr_tpu_torch.models.bridges import (
 )
 from mtasr_tpu_torch.models.ctc_head import CTCHead, ctc_argmax, ctc_logits
 from mtasr_tpu_torch.models.layers import linear
-from mtasr_tpu_torch.models.llama import Llama, embed_tokens, llama_forward
+from mtasr_tpu_torch.models.llama import (
+    Llama, embed_table, embed_tokens, llama_forward,
+)
 from mtasr_tpu_torch.models.losses import hybrid_loss
 from mtasr_tpu_torch.models.refiners import (
     ExtractorConcat, extractor_concat_softmax,
@@ -207,8 +209,7 @@ def bridge_features(model: SpeechEncoderDecoderModel,
             ctc_greedy_collapse(ctc_argmax(h, s), mask_x0, cfg.ctc_blank_id,
                                 cfg.pad_token_id, CTC_PROMPT_MAX_LEN)[0]
             for h, s in zip(heads, sep_hidden)]
-        table = model.decoder.model.embed_tokens.weight.to(
-            encoder_hidden_states.dtype)
+        table = embed_table(model.decoder).to(encoder_hidden_states.dtype)
         pre_emb, pre_mask, _ = build_multi_ctc_prefix(
             transcripts, table, cfg.pad_token_id, CTC_PROMPT_MAX_LEN)
         encoder_hidden_states = torch.cat([pre_emb, encoder_hidden_states],

@@ -11,6 +11,16 @@ package reads `attention_dropout` nowhere), the positional conv's weight
 norm composed from (g, v) in float32 when the model carries them, and
 per-layer recomputation (`torch.utils.checkpoint`) with `cfg.remat`.
 
+Under tensor parallelism (`parallel/mesh.py::shard_model`) a layer's
+q/k/v and `intermediate_dense` are column-parallel and `out_proj` and
+`output_dense` row-parallel: a rank runs #2 / #3 and #8-#10 at H / tp
+heads. The position bias is built from the replicated `rel_attn_embed`
+and sliced to the local heads, and the gate reads the local heads'
+slices of the input with the replicated `gru_rel_pos_linear` and
+`gru_rel_pos_const`; all three enter through `copy_to_tp`, so their
+gradients (#10's table gradient among them) are summed over the heads of
+every rank. The conv frontend (#1) is replicated.
+
 Parameter names are the JAX tree's flat keys under `encoder.`.
 """
 from __future__ import annotations
@@ -19,17 +29,22 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mtasr_tpu_torch.config import WavLMConfig
 from mtasr_tpu_torch.models.layers import (
     ACT, conv1d, dropout, gelu, group_norm, layer_norm, linear, remat_layer,
+    row_linear,
 )
 from mtasr_tpu_torch.ops.kernels.conv_frontend import conv0_fused
 from mtasr_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, padded_bias,
 )
 from mtasr_tpu_torch.ops.relpos import relative_position_bucket
+from mtasr_tpu_torch.parallel.collectives import (
+    copy_to_tp, group_rank, group_size,
+)
 
 
 @dataclass
@@ -246,16 +261,32 @@ def feature_encoder(fe: _FeatureExtractor, cfg: WavLMConfig,
     return x
 
 
+def _local_heads(n_heads: int, tp) -> slice:
+    n = n_heads // group_size(tp)
+    return slice(group_rank(tp) * n, (group_rank(tp) + 1) * n)
+
+
 def _attention_gate(att: _Attention, x: torch.Tensor,
                     n_heads: int) -> torch.Tensor:
-    """Per-(batch, head, query) gate of the shared rel-pos bias, [B, H, T]."""
+    """Per-(batch, head, query) gate of the shared rel-pos bias, [B, H, T]
+    (this rank's heads under tp: `n_heads` are all of them)."""
     B, T, E = x.shape
     gh = x.reshape(B, T, n_heads, E // n_heads)
-    proj = linear(att.gru_rel_pos_linear, gh)
+    const = att.gru_rel_pos_const
+    tp = getattr(att, "tp", None)
+    if tp is None:
+        proj = linear(att.gru_rel_pos_linear, gh)
+    else:
+        heads = _local_heads(n_heads, tp)
+        gh, const = gh[:, :, heads], copy_to_tp(const, tp)[heads]
+        lin = att.gru_rel_pos_linear
+        proj = F.linear(gh, copy_to_tp(lin.weight, tp).to(x.dtype),
+                        copy_to_tp(lin.bias, tp).to(x.dtype))
+        n_heads = gh.shape[2]
     proj = proj.reshape(B, T, n_heads, 2, 4).sum(-1)
     gates = torch.sigmoid(proj)
     gate_a, gate_b = gates[..., 0], gates[..., 1]
-    const = att.gru_rel_pos_const.to(x.dtype)
+    const = const.to(x.dtype)
     gate_out = gate_a * (gate_b * const[None, None, :] - 1.0) + 2.0
     return gate_out.transpose(1, 2).contiguous()
 
@@ -266,24 +297,29 @@ def _wavlm_attention(att: _Attention, cfg: WavLMConfig, x: torch.Tensor,
     B, T, E = x.shape
     H = cfg.num_attention_heads
     D = E // H
-    q = linear(att.q_proj, x).reshape(B, T, H, D)
-    k = linear(att.k_proj, x).reshape(B, T, H, D)
-    v = linear(att.v_proj, x).reshape(B, T, H, D)
+    tp = getattr(att, "tp", None)
+    x = copy_to_tp(x, tp)
+    Hl = H // group_size(tp)
+    q = linear(att.q_proj, x).reshape(B, T, Hl, D)
+    k = linear(att.k_proj, x).reshape(B, T, Hl, D)
+    v = linear(att.v_proj, x).reshape(B, T, Hl, D)
     kv_lens = (key_valid_mask.sum(-1, dtype=torch.int32)
                if key_valid_mask is not None else None)
     out = flash_attention(q, k, v, kv_lens=kv_lens,
                           pos_bias=position_bias.to(x.dtype),
                           gate=_attention_gate(att, x, H))
-    return linear(att.out_proj, out.reshape(B, T, E))
+    return row_linear(att.out_proj, out.reshape(B, T, Hl * D), tp)
 
 
 def _feed_forward(ff: _FeedForward, cfg: WavLMConfig, x: torch.Tensor,
                   deterministic: bool = True,
                   generator: Optional[torch.Generator] = None
                   ) -> torch.Tensor:
+    tp = getattr(ff, "tp", None)
+    x = copy_to_tp(x, tp)
     h = ACT[cfg.hidden_act](linear(ff.intermediate_dense, x))
     h = dropout(h, cfg.activation_dropout, generator, deterministic)
-    h = linear(ff.output_dense, h)
+    h = row_linear(ff.output_dense, h, tp)
     return dropout(h, cfg.hidden_dropout, generator, deterministic)
 
 
@@ -335,7 +371,11 @@ def wavlm_encoder_prologue(enc: _Encoder, cfg: WavLMConfig,
     buckets = relative_position_bucket(T, T, cfg.num_buckets,
                                        cfg.max_bucket_distance,
                                        device=hidden.device)
-    table = enc.layers["0"].attention.rel_attn_embed.weight
+    att0 = enc.layers["0"].attention
+    table = att0.rel_attn_embed.weight
+    tp = getattr(att0, "tp", None)
+    if tp is not None:   # this rank's heads
+        table = copy_to_tp(table, tp)[:, _local_heads(table.shape[1], tp)]
     position_bias = padded_bias(table[buckets].permute(2, 0, 1))
     return hidden, position_bias
 

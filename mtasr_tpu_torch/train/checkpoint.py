@@ -19,6 +19,12 @@ complete, so a reader never sees half of one. Retention keeps the newest
 reference's refuse-to-clobber rule. `extract_by_prefix` / `load_partial`
 move the separator and CTC heads between flat parameter dicts, copying the
 overlapping rows of a `ctc_lo` whose vocabulary differs.
+
+On a dp x tp mesh (`parallel/mesh.py`) every rank gathers the model and
+the AdamW moments from the tp slices and rank 0 writes them, in the
+single-process format; a restore reads the whole state and takes this
+rank's slices, so a checkpoint moves between geometries (one process, dp,
+tp) as it is.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import torch
 
 from mtasr_tpu_torch.config import SpeechEncoderDecoderConfig
+from mtasr_tpu_torch.parallel import multihost
+from mtasr_tpu_torch.parallel.mesh import gather_state_dict, tp_local
 from mtasr_tpu_torch.utils.model_io import (
     LORA_META, check_disk, flat_state, read_flat, save_model, tensor_bytes,
 )
@@ -45,9 +53,12 @@ def ckpt_dir(output_dir: str, step: int) -> str:
     return os.path.join(os.path.abspath(output_dir), f"checkpoint-{step}")
 
 
-def _opt_flat(opt_state: dict) -> Dict[str, torch.Tensor]:
+def _opt_flat(opt_state: dict, model=None) -> Dict[str, torch.Tensor]:
+    """The moments by `<slot>.<parameter name>`, each gathered whole from
+    the tp slices when `model` is sharded."""
     return {f"{slot}.{name}": t for slot in ("mu", "nu", "acc")
-            for name, t in (opt_state.get(slot) or {}).items()}
+            for name, t in gather_state_dict(
+                dict(opt_state.get(slot) or {}), model).items()}
 
 
 def save_checkpoint(output_dir: str, step: int,
@@ -57,11 +68,15 @@ def save_checkpoint(output_dir: str, step: int,
                     save_total_limit: Optional[int] = None) -> str:
     """Write `checkpoint-<step>` under `output_dir` (replacing one of that
     step), then apply retention; returns its path. `opt_state` is
-    `AdamW.state_dict()`; `extra` goes into trainer_state.json."""
+    `AdamW.state_dict()`; `extra` goes into trainer_state.json. On a mesh
+    every rank calls it (the tp slices are gathered) and rank 0 writes."""
     path = ckpt_dir(output_dir, step)
     tmp = os.path.join(os.path.dirname(path), f".tmp-checkpoint-{step}")
-    flat = flat_state(model)
-    opt = _opt_flat(opt_state or {})
+    flat = gather_state_dict(flat_state(model), model)
+    opt = _opt_flat(opt_state or {}, model)
+    if multihost.process_index() != 0:
+        multihost.barrier("checkpoint")
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     check_disk(path, tensor_bytes(flat.values()) +
                tensor_bytes(opt.values()))
@@ -79,6 +94,7 @@ def save_checkpoint(output_dir: str, step: int,
     os.replace(tmp, path)
     if save_total_limit:
         apply_retention(output_dir, save_total_limit)
+    multihost.barrier("checkpoint")
     return path
 
 
@@ -127,11 +143,13 @@ def restore_checkpoint(path: str, model: torch.nn.Module,
     """Copy a checkpoint's parameters into `model` (strict: the same names
     and shapes; the parameters keep their identity, so an optimizer built
     over them stays valid) and, when given, its optimizer state into
-    `optimizer`; returns trainer_state.json."""
+    `optimizer`; returns trainer_state.json. A sharded model takes its
+    rank's slices of the whole state."""
     flat = read_flat(path)
     for key in LORA_META:
         flat.pop(key, None)
-    model.load_state_dict(flat, strict=True)
+    model.load_state_dict({k: tp_local(model, k, v) for k, v in flat.items()},
+                          strict=True)
     with open(os.path.join(path, STATE_FILE)) as f:
         state = json.load(f)
     if optimizer is not None:
@@ -139,7 +157,7 @@ def restore_checkpoint(path: str, model: torch.nn.Module,
         slots: Dict[str, Dict[str, torch.Tensor]] = {}
         for key, t in opt.items():
             slot, name = key.split(".", 1)
-            slots.setdefault(slot, {})[name] = t
+            slots.setdefault(slot, {})[name] = tp_local(model, name, t)
         optimizer.load_state_dict({**slots, **state["optimizer"]})
     return state
 

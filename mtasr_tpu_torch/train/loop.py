@@ -12,6 +12,16 @@ interrupted epoch and skips the batches it had consumed, so a resumed run
 sees the data an uninterrupted one does. With eval batches, the best
 model by `metric_for_best_model` is kept in `output_dir/best/`, outside the
 rotation, and loaded at the end (`load_best_model_at_end`).
+
+With a dp x tp `mesh` (`parallel/mesh.py`) the model is sharded before
+the optimizer is built, every rank assembles the whole global batch on
+the host (so the shuffle and the SpecAugment masks are the single
+process's) and keeps its dp index's rows, and the steps sum the
+gradients over dp (`train_step.py`). The dropout generator of a step is
+the same on the ranks of a tp group and differs between dp indices. Eval
+decodes each dp index's rows, gathers the hypotheses and computes the
+WER once on every rank; only rank 0 writes `metrics.jsonl` and the
+checkpoints.
 """
 from __future__ import annotations
 
@@ -31,6 +41,8 @@ from mtasr_tpu_torch.config import (
 )
 from mtasr_tpu_torch.data.pipeline import Batch
 from mtasr_tpu_torch.generate.engine import generate
+from mtasr_tpu_torch.parallel import multihost
+from mtasr_tpu_torch.parallel.mesh import shard_batch, shard_model
 from mtasr_tpu_torch.train.checkpoint import (
     last_checkpoint, restore_checkpoint, save_checkpoint,
 )
@@ -51,10 +63,14 @@ class TrainState:
     batch_in_epoch: int = 0   # last batch and how many it had consumed
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The dropout generator of one step: a function of (seed, step)."""
+def step_generator(seed: int, step: int, device,
+                   dp_index: int = 0) -> torch.Generator:
+    """The dropout generator of one step: a function of (seed, step) and,
+    past the first, of the data-parallel index (the rows differ, so do
+    their masks)."""
     g = torch.Generator(device=device)
-    g.manual_seed((int(seed) * 1_000_003 + int(step)) % (2 ** 63))
+    g.manual_seed((int(seed) * 1_000_003 + int(step) + int(dp_index) * 2 ** 40)
+                  % (2 ** 63))
     return g
 
 
@@ -66,8 +82,13 @@ class Trainer:
                  dc: DataConfig, model: torch.nn.Module, tokenizer=None,
                  freeze_kwargs: Optional[dict] = None,
                  gen_cfg: Optional[GenerationConfig] = None,
-                 total_steps: Optional[int] = None):
+                 total_steps: Optional[int] = None, mesh=None):
+        """`mesh`: a dp x tp `parallel.mesh.Mesh`; the model (whole, with
+        its LoRA attached) is sharded over it here."""
         self.cfg, self.tc, self.dc = cfg, tc, dc
+        if mesh is not None and getattr(model, "mesh", None) is None:
+            shard_model(model, cfg, mesh)
+        self.mesh = getattr(model, "mesh", None)
         self.model = model
         self.tokenizer = tokenizer
         self.gen_cfg = gen_cfg or GenerationConfig()
@@ -90,21 +111,29 @@ class Trainer:
     def _train_step(self, splice_index: int) -> Callable:
         if splice_index not in self._train_steps:
             self._train_steps[splice_index] = make_train_step(
-                self.cfg, self.tc, self.optimizer, splice_index=splice_index)
+                self.cfg, self.tc, self.optimizer, splice_index=splice_index,
+                mesh=self.mesh)
         return self._train_steps[splice_index]
 
     def _eval_step(self, splice_index: int) -> Callable:
         if splice_index not in self._eval_steps:
             self._eval_steps[splice_index] = make_eval_step(
-                self.cfg, splice_index=splice_index)
+                self.cfg, splice_index=splice_index, mesh=self.mesh)
         return self._eval_steps[splice_index]
 
-    def _tensors(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                for k, v in batch.arrays.items() if k != "prompt_ids"}
+    def _tensors(self, batch: Batch, rows: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+        """The batch on the device; with `rows`, this dp index's rows."""
+        arrays = {k: v for k, v in batch.arrays.items() if k != "prompt_ids"}
+        if rows:
+            arrays = shard_batch(arrays, self.mesh)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in arrays.items()}
 
     def _write_metrics(self, m: dict) -> None:
-        """Append one JSON line to `output_dir/metrics.jsonl`."""
+        """Append one JSON line to `output_dir/metrics.jsonl` (rank 0)."""
+        if multihost.process_index() != 0:
+            return
         try:
             os.makedirs(self.tc.output_dir, exist_ok=True)
             with open(os.path.join(self.tc.output_dir, "metrics.jsonl"),
@@ -210,10 +239,11 @@ class Trainer:
                 if self.state.step >= max_steps:
                     completed_epoch = False
                     break
-                gen = step_generator(self.tc.seed, self.state.step,
-                                     self.device)
+                gen = step_generator(
+                    self.tc.seed, self.state.step, self.device,
+                    self.mesh.dp_index if self.mesh is not None else 0)
                 metrics = self._train_step(batch.splice_index)(
-                    self.model, self._tensors(batch), gen)
+                    self.model, self._tensors(batch, rows=True), gen)
                 self.state = TrainState(self.state.step + 1, epoch, bi + 1)
                 samples += batch.arrays["input_values"].shape[0]
                 if self.state.step % self.tc.logging_steps == 0:
@@ -257,7 +287,8 @@ class Trainer:
         calc = Calculator() if (refs and self.tokenizer) else None
         for batch in batches:
             arrays = self._tensors(batch)
-            m = self._eval_step(batch.splice_index)(self.model, arrays)
+            m = self._eval_step(batch.splice_index)(
+                self.model, self._tensors(batch, rows=True))
             losses.append(float(m["loss"]))
             if calc is not None and with_generate:
                 prompt = batch.arrays.get("prompt_ids")

@@ -19,6 +19,8 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from mtasr_tpu_torch.parallel.mesh import tp_local
+
 TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj")
 
 
@@ -77,14 +79,16 @@ def init_decoder_lora(model: nn.Module, generator: torch.Generator,
 def apply_decoder_lora(model: nn.Module,
                        lora: DecoderLoRA) -> Dict[str, torch.Tensor]:
     """The merged weights W + scale * B @ A (float32, cast to W's dtype),
-    by parameter name; the model is not changed."""
+    by parameter name; the model is not changed. A tensor-parallel W
+    takes its rank's slice of the product."""
     out = {}
     for li, projs in lora.items():
         for name, ab in projs.items():
             w = _proj(model, li, name).weight
-            delta = (ab.lora_B.float() @ ab.lora_A.float()) * lora.scale
-            out[f"decoder.model.layers.{li}.self_attn.{name}.weight"] = \
-                (w.float() + delta).to(w.dtype)
+            key = f"decoder.model.layers.{li}.self_attn.{name}.weight"
+            delta = tp_local(model, key, (ab.lora_B.float()
+                                          @ ab.lora_A.float()) * lora.scale)
+            out[key] = (w.float() + delta).to(w.dtype)
     return out
 
 

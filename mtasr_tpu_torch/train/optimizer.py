@@ -23,6 +23,11 @@ its zero cotangent is in JAX.
 count (the schedule's position and the bias correction), the micro-batch
 position, both moments and the accumulated gradient of every trainable
 tensor, by parameter name.
+
+On a model sharded over tp (`parallel/mesh.py::shard_model`, before the
+optimizer is built) the clip's global norm sums the squares of the
+sharded parameters' gradients over the tp group and counts the
+replicated ones once: the norm of the whole model's gradient.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from mtasr_tpu_torch.config import TrainingConfig
+from mtasr_tpu_torch.parallel.collectives import tp_dot
 
 
 def linear_warmup_schedule(lr: float, warmup_steps: int, total_steps: int):
@@ -77,6 +83,10 @@ class AdamW:
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.decay = [not is_no_decay(n) for n, _ in named]
+        layout = getattr(model, "tp_layout", {})
+        self.sharded = [n in layout for n in self.names]
+        mesh = getattr(model, "mesh", None)
+        self.tp_group = mesh.tp_group if mesh is not None else None
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0          # updates applied
@@ -122,7 +132,13 @@ class AdamW:
 
     def grad_norm(self) -> torch.Tensor:
         """Global L2 norm of the trainable gradients (in float32)."""
-        return _global_norm(self.grads())
+        return self._norm(self.grads())
+
+    def _norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        if self.tp_group is None:
+            return _global_norm(grads)
+        return torch.sqrt(tp_dot(grads, grads, self.sharded,
+                                 self.tp_group))
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -145,7 +161,7 @@ class AdamW:
 
     def _update(self, grads: List[torch.Tensor]) -> None:
         tc = self.tc
-        norm = _global_norm(grads)
+        norm = self._norm(grads)
         if not bool(norm < tc.max_grad_norm):
             grads = [(g / norm.to(g.dtype)) * tc.max_grad_norm for g in grads]
         b1, b2, eps = tc.adam_beta1, tc.adam_beta2, tc.adam_epsilon

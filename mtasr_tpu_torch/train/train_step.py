@@ -23,6 +23,18 @@ pulled back onto its separated stream, then through stage A with
 backwards a step. PIT picks a per-sample assignment inside the loss, so it
 keeps the joint graph: the total loss's backward to the other parameters,
 then each head's mean through the whole graph to the shared ones.
+
+On a dp x tp mesh (the model sharded by `parallel/mesh.py::shard_model`)
+each rank takes its dp index's rows of the global batch. The losses
+divide by the global batch's counts (`collectives.dp_reduction`: the
+cross-entropy by the valid tokens of all ranks, each CTC mean by the
+global batch), so a rank's loss is its local sum over the global
+denominator and the gradients are summed over dp, by explicit
+all-reduces of the gradient lists rather than DDP's hooks, which
+`torch.autograd.grad` (PCGrad's per-head gradients) would not fire.
+PCGrad projects the dp-summed per-head gradients, as JAX projects global
+ones; its dot products and every norm sum the squares of sharded
+parameters over tp and count replicated ones once.
 """
 from __future__ import annotations
 
@@ -37,6 +49,10 @@ from mtasr_tpu_torch.models.speech_encoder_decoder import (
     bridge_features, ctc_heads, encode_feats, model_forward,
     model_forward_from_enc,
 )
+from mtasr_tpu_torch.parallel.collectives import (
+    all_reduce, batch_mean, dp_reduction, sum_grads, tp_dot,
+)
+from mtasr_tpu_torch.parallel.mesh import is_sharded
 from mtasr_tpu_torch.train.optimizer import AdamW, _global_norm
 
 SHARED_TOPS = ("encoder", "separator")
@@ -48,20 +64,28 @@ def _dot(a: List[torch.Tensor], b: List[torch.Tensor]) -> torch.Tensor:
     return sum((x.float() * y.float()).sum() for x, y in zip(a, b))
 
 
-def pcgrad_project(head_grads: List[List[torch.Tensor]]
-                   ) -> List[torch.Tensor]:
+def pcgrad_project(head_grads: List[List[torch.Tensor]],
+                   sharded: Optional[List[bool]] = None,
+                   tp_group=None) -> List[torch.Tensor]:
     """head_grads: K lists of the shared gradients, one per head. Their
     PCGrad-projected sum, by the reference's sequential sweep
-    (`train_step.py:62-78`). Stays on the device: no host sync."""
+    (`train_step.py:62-78`). Stays on the device: no host sync. Under a
+    tp group, `sharded` flags the gradients of sharded parameters, whose
+    dot products are summed over the group."""
+    def dot(a, b):
+        if tp_group is None:
+            return _dot(a, b)
+        return tp_dot(a, b, sharded, tp_group)
     grads = [list(g) for g in head_grads]
     K = len(grads)
     for i in range(K):
         for j in range(K):
             if i == j:
                 continue
-            dot = _dot(grads[i], grads[j])
-            norm2 = _dot(grads[j], grads[j]) + 1e-12
-            alpha = torch.where(dot < 0, dot / norm2, torch.zeros_like(dot))
+            dot_ij = dot(grads[i], grads[j])
+            norm2 = dot(grads[j], grads[j]) + 1e-12
+            alpha = torch.where(dot_ij < 0, dot_ij / norm2,
+                                torch.zeros_like(dot_ij))
             grads[i] = [x - alpha.to(x.dtype) * y
                         for x, y in zip(grads[i], grads[j])]
     out = grads[0]
@@ -78,6 +102,12 @@ def _split_params(model: torch.nn.Module):
         if p.requires_grad:
             (shared if name.split(".")[0] in SHARED_TOPS else rest).append(p)
     return shared, rest
+
+
+def _shared_sharded(model: torch.nn.Module) -> List[bool]:
+    """Which of `_split_params`' shared parameters are tensor-parallel."""
+    return [is_sharded(model, name) for name, p in model.named_parameters()
+            if p.requires_grad and name.split(".")[0] in SHARED_TOPS]
 
 
 def _grads(out, inputs, grad_outputs=None, retain_graph=True):
@@ -139,7 +169,7 @@ def _three_stage(model, cfg, batch, splice_index, generator, shared, rest):
     _, per_head = serialized_ctc_loss(
         ctc_heads(model, cfg), leaves, hlens, batch["label_spks"],
         batch["label_spk_lens"], cfg.ctc_blank_id, detach_heads=True)
-    heads = per_head.mean(1)
+    heads = batch_mean(per_head, 1)
     K = heads.shape[0]
     refined = None
     if cfg.talker_ctc_refine:
@@ -166,7 +196,7 @@ def _joint_pit(model, cfg, batch, splice_index, generator, shared, rest):
     pulled back to the rest, each head's mean to the shared parameters."""
     out = _forward(model, cfg, batch, splice_index, False, generator,
                    use_pit=True)
-    heads = out.aux["ctc_per_head"].mean(1)
+    heads = batch_mean(out.aux["ctc_per_head"], 1)
     g_rest = _grads(out.loss, rest)
     K = heads.shape[0]
     head_grads = [_grads(heads[i], shared, retain_graph=i < K - 1)
@@ -176,7 +206,7 @@ def _joint_pit(model, cfg, batch, splice_index, generator, shared, rest):
 
 def make_train_step(cfg: SpeechEncoderDecoderConfig, tc: TrainingConfig,
                     optimizer: AdamW, *, splice_index: int = 1,
-                    use_pit: bool = False) -> Callable:
+                    use_pit: bool = False, mesh=None) -> Callable:
     """step(model, batch, generator) -> metrics: updates `model` in place.
     batch: tensors on the model's device, keys input_values, audio_mask,
     decoder_input_ids, ce_labels[, label_spks, label_spk_lens,
@@ -184,34 +214,46 @@ def make_train_step(cfg: SpeechEncoderDecoderConfig, tc: TrainingConfig,
     not synchronised): loss, grad_norm (of the trainable gradients, before
     clipping), and as the mode has them loss_attn, loss_ctc,
     ctc_head_grad_norms [K] (of each head's unprojected shared gradient)
-    and pit_swap_ratio."""
+    and pit_swap_ratio. With a `mesh` `batch` holds this rank's rows
+    (`mesh.shard_batch`), and the metrics are the global batch's."""
     pcgrad = (tc.pcgrad and cfg.talker_ctc and cfg.talker_numbers >= 2
               and cfg.train_mode in ("ctc", "hybrid"))
+    dp = mesh.dp_group if mesh is not None else None
+    tp = mesh.tp_group if mesh is not None else None
 
     def step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
         metrics = {}
-        if not pcgrad:
-            out = _forward(model, cfg, batch, splice_index, False, generator,
-                           use_pit)
-            out.loss.backward()
-        else:
-            shared, rest = _split_params(model)
-            branch = _joint_pit if use_pit else _three_stage
-            out, head_grads, g_rest = branch(model, cfg, batch, splice_index,
-                                             generator, shared, rest)
-            for p, g in zip(shared, pcgrad_project(head_grads)):
-                p.grad = g
-            for p, g in zip(rest, g_rest):
-                p.grad = g
-            metrics["ctc_head_grad_norms"] = torch.stack(
-                [_global_norm(g) for g in head_grads])
-        metrics["loss"] = out.loss.detach()
+        with dp_reduction(dp):
+            if not pcgrad:
+                out = _forward(model, cfg, batch, splice_index, False,
+                               generator, use_pit)
+                out.loss.backward()
+                if dp is not None:
+                    for p, g in zip(optimizer.params,
+                                    sum_grads(optimizer.grads(), dp)):
+                        p.grad = g
+            else:
+                shared, rest = _split_params(model)
+                flags = _shared_sharded(model)
+                branch = _joint_pit if use_pit else _three_stage
+                out, head_grads, g_rest = branch(
+                    model, cfg, batch, splice_index, generator, shared, rest)
+                head_grads = [sum_grads(g, dp) for g in head_grads]
+                for p, g in zip(shared,
+                                pcgrad_project(head_grads, flags, tp)):
+                    p.grad = g
+                for p, g in zip(rest, sum_grads(g_rest, dp)):
+                    p.grad = g
+                metrics["ctc_head_grad_norms"] = torch.stack(
+                    [_global_norm(g) if tp is None
+                     else tp_dot(g, g, flags, tp).sqrt() for g in head_grads])
+        metrics["loss"] = all_reduce(out.loss.detach(), dp)
         metrics["grad_norm"] = optimizer.grad_norm()
         for k in METRIC_KEYS:
             if k in out.aux:
-                metrics[k] = out.aux[k].detach()
+                metrics[k] = all_reduce(out.aux[k].detach(), dp)
         optimizer.step()
         optimizer.zero_grad()
         return metrics
@@ -219,15 +261,18 @@ def make_train_step(cfg: SpeechEncoderDecoderConfig, tc: TrainingConfig,
 
 
 def make_eval_step(cfg: SpeechEncoderDecoderConfig, *,
-                   splice_index: int = 1) -> Callable:
+                   splice_index: int = 1, mesh=None) -> Callable:
     """eval_step(model, batch) -> {"loss", "loss_attn", "loss_ctc"} as the
-    mode has them, deterministic."""
+    mode has them, deterministic (the global batch's with a `mesh`)."""
+    dp = mesh.dp_group if mesh is not None else None
+
     @torch.no_grad()
     def eval_step(model, batch):
-        out = _forward(model, cfg, batch, splice_index, True, None)
-        metrics = {"loss": out.loss}
+        with dp_reduction(dp):
+            out = _forward(model, cfg, batch, splice_index, True, None)
+        metrics = {"loss": all_reduce(out.loss, dp)}
         for k in ("loss_attn", "loss_ctc"):
             if k in out.aux:
-                metrics[k] = out.aux[k]
+                metrics[k] = all_reduce(out.aux[k], dp)
         return metrics
     return eval_step

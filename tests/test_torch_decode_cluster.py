@@ -93,3 +93,20 @@ def test_int8_cluster_size_at_the_served_shapes():
     assert [di.cluster_size_int8(B, 8, 214) for B in (1, 8, 16, 17, 64)] \
         == [8, 3, 2, 1, 1]
     assert di.cluster_size_int8(8, 8, 1000) == 8   # raised to one tile
+
+
+def test_cluster_sizes_at_the_sharded_decode_shapes():
+    """Data and tensor parallelism give #4 and #6 fewer (row, kv head)
+    pairs: LLaMA-3.2-1B at tp = 2 holds 4 kv heads a rank (B = 8), at
+    dp = 2 4 rows a rank (8 kv heads), both 32 pairs in place of 64; the
+    choosers then take 5 blocks a pair, which still covers the 132 SMs
+    (160 blocks) and gives each block 42-43 of the 214 slots, inside one
+    ring tile (64 keys for #4, 128 for #6)."""
+    for B, Hkv in ((8, 4), (4, 8)):
+        C, C8 = da.cluster_size(B, Hkv, 214), di.cluster_size_int8(B, Hkv,
+                                                                     214)
+        assert C == C8 == 5
+        assert B * Hkv * C >= 132 and -(-214 // C) <= 64
+        assert all(214 * (r + 1) // C > 214 * r // C for r in range(C))
+    # tp = 2 at dp = 2: 16 pairs, 8 blocks each (the most a cluster holds)
+    assert da.cluster_size(4, 4, 214) == di.cluster_size_int8(4, 4, 214) == 8

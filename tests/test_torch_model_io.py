@@ -172,7 +172,8 @@ def test_unported_switches_raise_with_their_item():
                           gen=tconfig.GenerationConfig(use_cache=False))
     assert torch.equal(out.sequences, engine.generate(
         model, cfg, wav, None, max_new_tokens=3).sequences)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # dp x tp must cover the process group's ranks (`mesh.py:34`)
+    with pytest.raises(ValueError, match="2x1 != 1 ranks"):
         Transcriber.from_pretrained("unused", dp_size=2, device="cpu")
 
 

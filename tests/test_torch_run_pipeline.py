@@ -9,7 +9,9 @@ CPU, after `tests/test_pipeline_stage6.py`:
   pipeline's stages 4-6 write on a copy of it. The JAX CLI reads lazy WAVs
   through its native loader when it is built, which rounds the
   normalisation otherwise; both sides take the Python reader here;
-* data and tensor parallelism are refused before any stage.
+* stage 6 at `--dp_size 2` and at `--tp_size 2` runs the inference CLI
+  on two ranks under `torch.distributed.run` and writes the
+  single-process files.
 """
 import os
 import shutil
@@ -94,8 +96,43 @@ def test_run_name_matches_jax(kw):
     assert tpipe.encode_run_name(args) == jpipe.encode_run_name(args)
 
 
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """A run directory after stages 1-3 and its single-process stage 6."""
+    tmp = tmp_path_factory.mktemp("pipeline")
+    data = _kaldi(tmp / "data", 4, 0)
+    root = str(tmp / "port")
+    tpipe.main(_argv(root, data, "--stop_stage", "3", "--device", "cpu"))
+    tpipe.main(_argv(root, data, "--stage", "6", "--stop_stage", "6",
+                     "--device", "cpu"))
+    return root, data
+
+
+def _stage6(root):
+    run = os.listdir(os.path.join(root, "exp"))[0]
+    return os.path.join(root, "exp", run, "decode_stage6")
+
+
 @pytest.mark.parametrize("flags", [["--dp_size", "2"], ["--tp_size", "2"]])
-def test_parallel_sizes_refused(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpipe.main(_argv(str(tmp_path), str(tmp_path)) + flags)
-    assert not os.path.exists(tmp_path / "exp")
+def test_parallel_sizes_refused(trained, tmp_path, monkeypatch, flags):
+    """Data and tensor parallelism run (no longer refused): stage 6 at
+    `--dp_size 2` or `--tp_size 2` runs the inference CLI on two ranks
+    under `torch.distributed.run` (gloo, `--device cpu`), and rank 0
+    writes the single-process `decod`, `label` and `wer`."""
+    root, data = trained
+    copy = str(tmp_path / "root")
+    shutil.copytree(root, copy)
+    shutil.rmtree(_stage6(copy))
+    monkeypatch.setenv("PYTHONPATH", os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    tpipe.main(_argv(copy, data, "--stage", "6", "--stop_stage", "6",
+                     "--device", "cpu", *flags))
+    for name in ("decod", "label", "wer"):
+        with open(os.path.join(_stage6(root), name)) as f:
+            want = f.read()
+        with open(os.path.join(_stage6(copy), name)) as f:
+            assert f.read() == want, name
+    # one writer: no rank wrote a shard of its own
+    assert sorted(os.listdir(_stage6(copy))) == sorted(
+        os.listdir(_stage6(root)))

@@ -142,7 +142,7 @@ def test_transcriber_matches_jax(instruct):
 
 
 def test_unported_routes_raise():
-    """What the port still refuses (tensor parallelism, ROADMAP item 8) and
+    """What the port refuses (a tp grid the ranks do not cover) and
     what it refuses as JAX does (transcribe_ctc without CTC heads); the
     decoding variants (item 7) run: a beam call gives the JAX
     Transcriber's best beam, and a CTC-drafted speculative decode of the
@@ -153,7 +153,9 @@ def test_unported_routes_raise():
     assert tt.transcribe(wav, **kw) == jt.transcribe(wav, **kw)
     with pytest.raises(ValueError, match="talker_ctc"):
         tt.transcribe_ctc(wav)          # no CTC heads on this model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # tensor parallelism runs on a process group (ROADMAP item 8); in one
+    # process a grid of two ranks raises, as `mesh.py:34` asserts
+    with pytest.raises(ValueError, match="1x2 != 1 ranks"):
         Transcriber.from_pretrained("exp/model", tp_size=2, device="cpu")
     # the raw CTC bridge (ROADMAP item 6) is ported: it builds and decodes
     bridged = _port(tiny_cfg(train_mode="hybrid", talker_ctc=True,
