@@ -121,8 +121,12 @@ def run_serve(spec):
             steps.append(logits.float().clone())
             return real(logits, g, generator)
         engine._sample_token = record
+        # sampling draws from a generator seeded alike on every rank
+        sampler = None if spec.get("sample_seed") is None else \
+            torch.Generator().manual_seed(spec["sample_seed"])
         try:
             o = generate(model, cfg, wav, amask, prompt_ids=prompt, gen=gen,
+                         generator=sampler,
                          max_new_tokens=spec["max_new_tokens"])
         finally:
             engine._sample_token = real

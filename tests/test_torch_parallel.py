@@ -352,8 +352,10 @@ def test_initialize_contract(monkeypatch):
 
 def test_two_ranks_collectives_multihost_and_dp2_training(tmp_path):
     """The region operators and the collectives against one process, the
-    `_multihost_worker.py` flow, and a dp = 2 attention step (SpecAugment
-    masks on) against the port in one process."""
+    `_multihost_worker.py` flow, a dp = 2 attention step (SpecAugment
+    masks on) against the port in one process, and dp = 2 sampling: the
+    tokens drawn once for the gathered batch from one seeded generator are
+    one process's draws (the dp indices step together)."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal((4, 3)).astype(np.float32)
     w = rng.standard_normal((4, 3)).astype(np.float32)
@@ -365,15 +367,28 @@ def test_two_ranks_collectives_multihost_and_dp2_training(tmp_path):
                      pcgrad=False, **TRAIN_TC, output_dir=str(tmp_path)),
                  freeze=dict(freeze_decoder=True), batches=batches,
                  mesh=(2, 1))
+    scfg = _tiny(train_mode="attention")
+    wav, amask = _wav()
+    sample = dict(kind="serve", route="greedy", cfg=_port(scfg),
+                  flat=_flat(_params(scfg, seed=9, decoder_scale=8.0)),
+                  wav=wav, amask=amask, max_new_tokens=10, sample_seed=3,
+                  gen=tconfig.GenerationConfig(do_sample=True, top_k=20),
+                  mesh=(2, 1))
     job = str(tmp_path / "job.pt")
     torch.save({"scenarios": {
         "coll": dict(kind="collectives", x=x, w=w),
         "mh": dict(kind="multihost", outdir=str(tmp_path)),
-        "dp2": train}}, job)
+        "dp2": train, "sample": sample}}, job)
     ranks = Ranks(job, 2)
-    from tests._torch_parallel_worker import run_train
+    from tests._torch_parallel_worker import run_serve, run_train
     single = run_train(dict(train, mesh=(1, 1)))
+    drawn = run_serve(dict(sample, mesh=(1, 1)))["sequences"]
     res = ranks.results()
+    for r in range(2):
+        np.testing.assert_array_equal(res[r]["sample"]["sequences"], drawn)
+    greedy = run_serve(dict(sample, mesh=(1, 1),
+                            gen=tconfig.GenerationConfig()))
+    assert not np.array_equal(drawn, greedy["sequences"])
     n = 2
     for r in range(n):
         c = res[r]["coll"]
