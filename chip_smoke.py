@@ -8,6 +8,9 @@
     python3 chip_smoke.py --only-decoding  # phases 1, 2 and 15 alone; its
                                            # last line {"ok": true, "only":
                                            # "decoding"}
+    python3 chip_smoke.py --only-parallel  # phases 1, 2 and 16 alone; its
+                                           # last line {"ok": true, "only":
+                                           # "parallel"}
 
 Phases, one line each, any failure exits non-zero:
 
@@ -137,7 +140,27 @@ Phases, one line each, any failure exits non-zero:
     greedy's up to the first near tie, the ms an emitted token against
     greedy's; (D) the same, w8a8 + int8 KV, oracle and mixed drafts
     through #7 and #6; then #5 (beside SDPA) and #7 in a CUDA graph on a
-    verify call's inputs; the phase's wall time.
+    verify call's inputs; the phase's wall time;
+16. data and tensor parallelism: the single-process references first
+    (phase 15's serve batch in bf16 and w8a8 + int8 KV: tokens, top-2
+    gaps, the logits of the prefill and GATE_STEPS steps, RTFx; one
+    deterministic attention-mode step of phase 9's model at 16 x 10 s,
+    warmup 0: the encoder's gradients, the parameters after it, ms/step,
+    and the kernels-vs-plain gradients as a rounding yardstick), then
+    PAR_WORLD = 2 ranks (`chip_smoke.py --rank`) on cuda:0 over gloo with
+    CUDA tensors (NCCL refuses two ranks on one device), started after
+    the build and joined with a timeout: (a) tp = 2 serve, bf16 and int8,
+    (b) dp = 2 serve (4 + 4 rows), (c) one step at tp = 2 and one at dp =
+    2, each against the references: tokens parting only at a top-2 gap
+    under TIE_TOL, logits within LOGITS_TOL, gradients and the updated
+    parameters within GRAD_TOL, the rel-pos table's gradient within
+    REL_POS_TOL; on each rank #2 and #4 (or #6) held against their plain
+    versions on the inputs its run gave them; RTFx or ms/step beside one
+    process's and the share of a clocked call or step spent in the
+    collectives (`CollectiveClock`); the ranks' launch counts go into the
+    kernels record; (d) the inference CLI under `torch.distributed.run
+    --nproc_per_node 1` (NCCL, world size 1) writes the `decod` of the
+    same CLI in this process.
 
 Every kernel's record carries its error, its time, its plain version's
 time, the least time the card could take (`bound_ms`, from the bytes the
