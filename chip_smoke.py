@@ -11,6 +11,9 @@
     python3 chip_smoke.py --only-parallel  # phases 1, 2 and 16 alone; its
                                            # last line {"ok": true, "only":
                                            # "parallel"}
+    python3 chip_smoke.py --only-pipelined # phases 1, 2 and 17 alone; its
+                                           # last line {"ok": true, "only":
+                                           # "pipelined"}
 
 Phases, one line each, any failure exits non-zero:
 
@@ -160,7 +163,30 @@ Phases, one line each, any failure exits non-zero:
     collectives (`CollectiveClock`); the ranks' launch counts go into the
     kernels record; (d) the inference CLI under `torch.distributed.run
     --nproc_per_node 1` (NCCL, world size 1) writes the `decod` of the
-    same CLI in this process.
+    same CLI in this process;
+17. the pipelined stream, the native host library and tracing, at full
+    width (seed 0): (a, bf16) a stream of PIPE_BATCHES = 3 batches of 8
+    padded 6-10 s waveforms (one 10 s bucket, 150 new tokens) through
+    `generate_pipelined` against `engine.generate` on each batch: the
+    tokens (parting only at a near tie, TIE_TOL), each batch's encoder
+    output against the sequential encode's (max abs difference printed),
+    the launch counts, set to 0 before each run and read after it (#1
+    once a batch, #2 24 times a batch, #4 as the sequential run gives
+    them), the RTFx of each; then SHORT_ROUNDS rounds in turns of the
+    same batches at SHORT_NEW tokens, and the device idle share of two
+    batches at PROFILE_NEW tokens each way (`tools/profile_path.py`'s
+    busy-interval union); (b) the same model quantized w8a8 in place with
+    an int8 KV cache (#6), a stream of PIPE_BATCHES_INT8 = 2 batches (its
+    decode step is 3-4x bf16's), the stream timed first; (c) the port's
+    native host library on a Kaldi directory of 16 generated 10 s WAVs:
+    built, every row status 0, `collate` native against Python within
+    NATIVE_TOL, host ms a batch of 8 both ways, `Calculator` native
+    against Python, and `cli.inference_asr --pipelined` (CLI_NEW tokens,
+    2 batches) writing the `decod` and `wer` of the same CLI without it
+    (the tokens too; every lazy row loaded natively);
+    (d) `profiling.trace` around a short stream names its three regions,
+    and `device_memory_stats()` reads non-zero. Every reading is printed
+    before any is gated.
 
 Every kernel's record carries its error, its time, its plain version's
 time, the least time the card could take (`bound_ms`, from the bytes the
@@ -184,6 +210,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2897,6 +2924,338 @@ def parallel_phase(torch, card: str, launches) -> None:
         fail("parallel: " + "; ".join(over))
 
 
+# -- phase 17: pipelined stream decoding, the native host helpers, tracing
+PIPE_SEED = SEED + 17    # the streams' waveforms and the Kaldi directory
+PIPE_BATCHES = 3         # batches of the bf16 stream
+PIPE_BATCHES_INT8 = 2    # of the int8 one (its decode step is 3-4x bf16's)
+CLI_NEW = 32             # new tokens of 17c's CLI runs
+NATIVE_TOL = 2e-4        # the native loader's normalisation against Python's
+                         # (another rounding: `tests/test_native.py:158`)
+HOST_REPS = 5            # collates timed a loader, the median kept
+SHORT_NEW = 32           # new tokens of the short streams timed in turns
+SHORT_ROUNDS = 2         # their rounds
+PROFILE_NEW = 16         # new tokens of the profiled two-batch runs
+
+
+def nonzero(counts) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def stream_parted(torch, model, cfg, batches, outs, seq, kv_quant):
+    """(rows whose stream tokens part from sequential generate's, the
+    largest top-2 gap where one parts): the gaps read, by a greedy rerun,
+    only for a batch that parts."""
+    rows, worst = 0, 0.0
+    for b, o, s in zip(batches, outs, seq):
+        if torch.equal(o.sequences, s.sequences):
+            continue
+        ref, gap, _, _ = greedy_with_gaps(torch, model, cfg,
+                                          b["input_values"],
+                                          b["audio_mask"], kv_quant)
+        r, w = parted(torch, o.sequences.cpu(), ref, gap)
+        rows, worst = rows + r, max(worst, w)
+    return rows, worst
+
+
+def stream_leg(torch, card: str, launches, cfg, model, tr, quant: bool,
+               root=None):
+    """17a (bf16; with `root`, also 17d and the model directory of 17c) /
+    17b (the model quantized w8a8, an int8 KV cache): a stream through
+    `generate_pipelined` against `engine.generate` on each batch. Every
+    reading is printed before any is gated; returns the failures."""
+    import glob
+    from unittest import mock
+
+    from mtasr_tpu_torch.config import GenerationConfig
+    from mtasr_tpu_torch.generate import engine, pipelined
+    from mtasr_tpu_torch.models.speech_encoder_decoder import encode_speech
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.utils import model_io, profiling
+    tag = "int8" if quant else "bf16"
+    n_batches = PIPE_BATCHES_INT8 if quant else PIPE_BATCHES
+    requests = full_width.waveforms(PIPE_SEED, n_batches, BATCH,
+                                    (6.0, 10.0))
+    batches = [dict(zip(("input_values", "audio_mask"),
+                        one_batch(torch, tr, wavs))) for wavs in requests]
+    audio_s = sum(len(w) for wavs in requests for w in wavs) / SR
+    gen = GenerationConfig(do_sample=False, kv_quant=quant)
+
+    def sequential():
+        return [engine.generate(model, cfg, b["input_values"],
+                                b["audio_mask"], gen=gen,
+                                max_new_tokens=MAX_NEW) for b in batches]
+
+    def stream(bs=batches, n=MAX_NEW):
+        return pipelined.generate_pipelined(model, cfg, bs, gen=gen,
+                                            max_new_tokens=n)
+    # warm-up: a short stream (the second CUDA stream's handles)
+    t_leg = time.perf_counter()
+    stream(batches[:2], 4)
+    torch.cuda.synchronize()
+    encs = []
+    real_post = pipelined._post_encode
+
+    def keep(*a, **kw):
+        enc = real_post(*a, **kw)
+        encs.append(enc.encoder_hidden_states.clone())
+        return enc
+    # bf16 times the sequential loop first, int8 the stream first
+    if quant:
+        with mock.patch.object(pipelined, "_post_encode", keep):
+            outs, counts, wall = counted(torch, stream)
+    seq, seq_counts, seq_wall = counted(torch, sequential)
+    if not quant:
+        with mock.patch.object(pipelined, "_post_encode", keep):
+            outs, counts, wall = counted(torch, stream)
+    for name, n in counts.items():
+        launches[name] += n
+    with torch.inference_mode():
+        ref_encs = [encode_speech(model, cfg, b["input_values"],
+                                  b["audio_mask"]).encoder_hidden_states
+                    for b in batches]
+        t0 = synced(torch)
+        encode_speech(model, cfg, batches[0]["input_values"],
+                      batches[0]["audio_mask"])
+        encode_ms = 1e3 * (synced(torch) - t0)
+    enc_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(encs, ref_encs))
+    rows, worst = stream_parted(torch, model, cfg, batches, outs, seq, quant)
+    steps = [o.steps for o in outs]
+    decode = "decode_attention_int8" if quant else "decode_attention"
+    L_enc = cfg.encoder.num_hidden_layers
+    saved = 1e3 * (seq_wall - wall) / (n_batches - 1)
+    say(f"pipelined 17{'b' if quant else 'a'} [{tag}]: {n_batches} "
+        f"batches x {BATCH} padded 6-10 s waveforms, {MAX_NEW} new tokens, "
+        f"decode steps {steps}; tokens part from engine.generate's in {rows}"
+        f" rows (largest top-2 gap there {worst:.5f}, TIE_TOL {TIE_TOL}); "
+        f"encoder output against the sequential encode's max_abs_err "
+        f"{enc_err:.5g}; launches {nonzero(counts)} (sequential "
+        f"{nonzero(seq_counts)}); RTFx stream {audio_s / wall:.3f} vs "
+        f"sequential {audio_s / seq_wall:.3f} (walls {wall:.4f} / "
+        f"{seq_wall:.4f} s, one each, the "
+        f"{'stream' if quant else 'sequential loop'} first); wall saved a "
+        f"batch after "
+        f"the first {saved:.2f} ms against a sequential encode of "
+        f"{encode_ms:.2f} ms wall; leg wall so far "
+        f"{time.perf_counter() - t_leg:.1f} s B={BATCH} [{card}]")
+    bad = []
+    if worst > TIE_TOL or not all(bool(torch.isfinite(e.float()).all())
+                                  for e in encs):
+        bad.append(f"17 {tag}: tokens part at a top-2 gap {worst}")
+    want = dict(seq_counts)
+    if counts != want or counts["conv0_fused"] != n_batches or \
+            counts["flash_attention"] != L_enc * n_batches or \
+            counts[decode] == 0:
+        bad.append(f"17 {tag}: launches {counts} != sequential {want}")
+    if root is not None:
+        # short streams (SHORT_NEW tokens), where the encode is a larger
+        # share: SHORT_ROUNDS rounds in turns; then the idle share of two
+        # batches of PROFILE_NEW tokens each way under the profiler (its
+        # post-processing of a long run takes minutes)
+        from mtasr_tpu_torch.tools.profile_path import profiled
+
+        def runs(bs, n):
+            return {"sequential": lambda: [engine.generate(
+                        model, cfg, b["input_values"], b["audio_mask"],
+                        gen=gen, max_new_tokens=n) for b in bs],
+                    "stream": lambda: stream(bs, n)}
+        short = {name: [] for name in runs(batches, SHORT_NEW)}
+        for _ in range(SHORT_ROUNDS):
+            for name, fn in runs(batches, SHORT_NEW).items():
+                short[name].append(counted(torch, fn)[2])
+        for name, fn in runs(batches[:2], PROFILE_NEW).items():
+            med = statistics.median(short[name])
+            fn_wall = counted(torch, fn)[2]
+            _, busy, top = profiled(fn)
+            say(f"pipelined 17a: {name}, {n_batches} batches x "
+                f"{SHORT_NEW} tokens: walls "
+                f"{[round(1e3 * w, 1) for w in short[name]]} ms in turns "
+                f"(median {1e3 * med:.1f}, RTFx {audio_s / med:.2f}); 2 "
+                f"batches x {PROFILE_NEW} tokens: wall {1e3 * fn_wall:.1f} "
+                f"ms, device busy {busy:.3f} ms (union of kernel intervals "
+                f"under torch.profiler), idle share "
+                f"{1 - busy / (1e3 * fn_wall):.3f}; largest device items "
+                f"{[(n[:40], round(ms, 3), c) for n, ms, c in top[:4]]} "
+                f"[{card}]")
+            if busy > 1e3 * fn_wall:
+                bad.append(f"17a: device busy {busy} ms past the wall")
+        # 17d: a user's trace names the overlap; the card's memory
+        logdir = os.path.join(root, "trace")
+        with profiling.trace(logdir):
+            stream(batches[:2], 4)
+        files = glob.glob(os.path.join(logdir, "*.json"))
+        text = open(files[0]).read() if len(files) == 1 else ""
+        regions = [r for r in ("pipelined/frontend", "pipelined/stage",
+                               "pipelined/post_encode") if r in text]
+        mem = profiling.device_memory_stats()
+        say(f"pipelined 17d: profiling.trace wrote {len(files)} file(s), "
+            f"{len(text) / 1e6:.2f} MB, regions {regions}; "
+            f"device_memory_stats {mem} [{card}]")
+        if len(regions) != 3 or not (mem.get("bytes_in_use", 0) > 0
+                                     and mem.get("peak_bytes_in_use", 0) > 0
+                                     and mem.get("bytes_limit", 0) > 0):
+            bad.append("17d: the trace or the memory stats are missing")
+        model_io.save_model(os.path.join(root, "model"), cfg, model)
+        tr.tokenizer.save(os.path.join(root, "model", "char_tokenizer.json"))
+    del encs, ref_encs, outs, seq
+    torch.cuda.empty_cache()
+    return bad
+
+
+def native_leg(torch, card: str, launches, root) -> list:
+    """17c: the port's native host library on a Kaldi directory of
+    generated 10 s WAVs: built and used on every row; `collate` native
+    against Python; host ms a batch; `Calculator` native against Python;
+    `cli.inference_asr --pipelined` against the same CLI without it, on the
+    model directory 17a saved. Returns the failures."""
+    from unittest import mock
+
+    import numpy as np
+
+    from mtasr_tpu_torch.cli import inference_asr
+    from mtasr_tpu_torch.config import DataConfig
+    from mtasr_tpu_torch.data import pipeline
+    from mtasr_tpu_torch.data.audio import load_kaldi_dir
+    from mtasr_tpu_torch.ops import kernels
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.utils import native, wer
+    bad = []
+    data, paths = kaldi_dir(root, 2 * BATCH, AUDIO_S, PIPE_SEED)
+    t0 = time.perf_counter()
+    built = {n: native.get_lib(n) is not None for n in native.SOURCES}
+    build_s = time.perf_counter() - t0
+    buf = np.zeros((len(paths), AUDIO_S * SR), np.float32)
+    lens, status = native.wav_load_batch_native(paths, buf, SR) or (
+        np.zeros(0), np.ones(len(paths)))
+    cfg, tok = full_width.config()
+    dc = DataConfig()
+    exs = pipeline.prepare_examples(load_kaldi_dir(data), tok, dc,
+                                    lazy=True)[:BATCH]
+
+    def timed_collate():
+        ms = []
+        for _ in range(HOST_REPS):
+            t0 = time.perf_counter()
+            batch = pipeline.collate(exs, cfg, dc)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return batch, sorted(ms)[len(ms) // 2]
+    nat, nat_ms = timed_collate()
+    with mock.patch.object(pipeline, "wav_load_batch_native",
+                           lambda *a, **k: None):
+        py, py_ms = timed_collate()
+    err = float(np.abs(nat.arrays["input_values"]
+                       - py.arrays["input_values"]).max())
+    masks = bool((nat.arrays["audio_mask"] == py.arrays["audio_mask"]).all())
+    rng = np.random.default_rng(PIPE_SEED)
+    words = ["hello", "world", "<sc>", "good", "day", "one", "two"]
+    pairs = [(" ".join(rng.choice(words, rng.integers(0, 40))),
+              " ".join(rng.choice(words, rng.integers(0, 40))))
+             for _ in range(200)]
+    calc_ms, calcs = {}, {}
+    for use in (True, False):
+        c = wer.Calculator(use_native=use)
+        t0 = time.perf_counter()
+        for i, (a, b) in enumerate(pairs):
+            c.calculate(str(i), a, b)
+        calc_ms[use] = 1e3 * (time.perf_counter() - t0)
+        calcs[use] = c.summary()
+    say(f"pipelined 17c: native libraries built {built} in {build_s:.2f} s; "
+        f"{len(paths)} x {AUDIO_S} s WAVs, statuses "
+        f"{sorted(set(status.tolist()))}, lengths "
+        f"{sorted(set(lens.tolist()))}; collate of {BATCH} lazy rows "
+        f"native vs Python max_abs_err {err:.3g} (tol {NATIVE_TOL}), masks "
+        f"equal {masks}; host ms a batch of {BATCH} (median of {HOST_REPS}): "
+        f"native {nat_ms:.2f}, Python {py_ms:.2f}; Calculator over "
+        f"{len(pairs)} pairs native {calc_ms[True]:.2f} ms vs Python "
+        f"{calc_ms[False]:.2f} ms, {calcs[True]} / {calcs[False]} [{card}]")
+    if not all(built.values()) or len(status) != len(paths) or \
+            set(status.tolist()) != {0} or err > NATIVE_TOL or not masks or \
+            calcs[True] != calcs[False]:
+        bad.append("17c: the native library or its results")
+    # the inference CLI, with and without --pipelined
+    seen, seqs, texts, cli_counts = [], {}, {}, {}
+    real_load = pipeline.wav_load_batch_native
+
+    def load(*a, **kw):
+        res = real_load(*a, **kw)
+        seen.append(None if res is None else res[1].tolist())
+        return res
+    for tag, extra in (("plain", []), ("pipelined", ["--pipelined"])):
+        out = os.path.join(root, f"decode_{tag}")
+        seqs[tag] = []
+        fn = "generate_pipelined" if extra else "generate"
+        real = getattr(inference_asr, fn)
+
+        def keep(*a, _real=real, _tag=tag, **kw):
+            res = _real(*a, **kw)
+            for o in (res if isinstance(res, list) else [res]):
+                seqs[_tag].append(o.sequences.cpu())
+            return res
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(pipeline, "wav_load_batch_native", load), \
+                mock.patch.object(inference_asr, fn, keep):
+            inference_asr.main([
+                "--model_name_or_path", os.path.join(root, "model"),
+                "--data_dir", data, "--output_dir", out, "--batch_size",
+                str(BATCH), "--max_length", str(CLI_NEW), *extra])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        cli_counts[tag] = kernels.launch_counts()
+        for name, n in cli_counts[tag].items():
+            launches[name] += n
+        texts[tag] = (open(os.path.join(out, "decod")).read(),
+                      open(os.path.join(out, "wer")).read().strip())
+        say(f"pipelined 17c: inference_asr {' '.join(extra) or '(plain)'}: "
+            f"{dt:.2f} s for {len(paths)} x {AUDIO_S} s, {texts[tag][1]}; "
+            f"launches {nonzero(cli_counts[tag])} [{card}]")
+    a, b = torch.cat(seqs["plain"]), torch.cat(seqs["pipelined"])
+    rows_ok = [s for s in seen if s is not None]
+    same = texts["plain"] == texts["pipelined"] and a.shape == b.shape and \
+        torch.equal(a, b)
+    say(f"pipelined 17c: --pipelined decod and wer equal the plain CLI's "
+        f"{same} (token ids {tuple(a.shape)}); native loads "
+        f"{len(rows_ok)} batches, rows {sum(len(s) for s in rows_ok)}, "
+        f"statuses {sorted({x for s in rows_ok for x in s})} [{card}]")
+    if not same or len(rows_ok) != len(seen) or \
+            sum(len(s) for s in rows_ok) != 2 * len(paths) or \
+            {x for s in rows_ok for x in s} != {0} or \
+            cli_counts["pipelined"]["conv0_fused"] != 2:
+        bad.append("17c: the --pipelined CLI or its native loads")
+    return bad
+
+
+def pipelined_phase(torch, card: str, launches) -> None:
+    """Phase 17 (module docstring)."""
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.utils.quantize import quantize_for_serving
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="pipelined_smoke_")
+    cfg, model, tr = full_width.build(SEED, "cuda", torch.bfloat16)
+
+    def int8_leg():
+        quantize_for_serving(model, "w8a8")    # in place, as build does
+        return stream_leg(torch, card, launches, cfg, model, tr, True)
+    laps, bad = {}, []
+    for leg, fn in (("17a+d", lambda: stream_leg(torch, card, launches, cfg,
+                                                 model, tr, False, root)),
+                    ("17b", int8_leg),
+                    ("17c", lambda: native_leg(torch, card, launches,
+                                               root))):
+        t0 = time.perf_counter()
+        bad += fn()
+        laps[leg] = round(time.perf_counter() - t0, 1)
+        if leg == "17b":
+            del cfg, model, tr
+            torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    say(f"pipelined: phase wall {time.perf_counter() - t_phase:.1f} s "
+        f"({laps} s) [{card}]")
+    if bad:
+        fail("pipelined: " + "; ".join(bad))
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--rank"]:
         rank_main(sys.argv[2:])      # one rank of phase 16
@@ -2940,6 +3299,14 @@ def main() -> None:
         say(f"parallel: launches {launches} (phase 16 alone: no kernels "
             "record)")
         print(json.dumps({"ok": True, "only": "parallel"}), flush=True)
+        return
+
+    if "--only-pipelined" in sys.argv[1:]:
+        launches = dict.fromkeys(kernels.WRAPPERS, 0)
+        pipelined_phase(torch, card, launches)
+        say(f"pipelined: launches {launches} (phase 17 alone: no kernels "
+            "record)")
+        print(json.dumps({"ok": True, "only": "pipelined"}), flush=True)
         return
 
     if "--only-family" in sys.argv[1:]:
@@ -3057,6 +3424,9 @@ def main() -> None:
 
     # -- data and tensor parallelism -----------------------------------------
     parallel_phase(torch, card, launches)
+
+    # -- pipelined stream decoding, the native host helpers, tracing --------
+    pipelined_phase(torch, card, launches)
 
     records = list(records.values())
     for r in records:

@@ -1,10 +1,7 @@
 """The argument groups of the CLIs (counterpart of `mtasr_tpu/cli/args.py`:
 the same flags, defaults and types), plus `--device`.
-
-Flags of parts the port does not run keep their place; `refuse_unported`
-raises with the reason (the ROADMAP item) when one is set away from its
-default. `setup_distributed` joins a `torch.distributed.run` launch and
-lays its ranks out as `--dp_size` x `--tp_size`."""
+`setup_distributed` joins a `torch.distributed.run` launch and lays its
+ranks out as `--dp_size` x `--tp_size`."""
 from __future__ import annotations
 
 import argparse
@@ -14,13 +11,6 @@ import torch
 
 from mtasr_tpu_torch.parallel import multihost
 from mtasr_tpu_torch.parallel.mesh import Mesh, make_mesh
-
-# flag -> (its default, why the port refuses another value)
-UNPORTED = {
-    "pipelined": (False, "not ported: ROADMAP queue 1 item 2's CUDA-graph "
-                         "step takes its place"),
-}
-
 
 def setup_distributed(args: argparse.Namespace):
     """(device, mesh) of this process. Under `torch.distributed.run`
@@ -36,19 +26,6 @@ def setup_distributed(args: argparse.Namespace):
     multihost.initialize(device=device)
     mesh: Mesh = make_mesh(args.dp_size, args.tp_size)
     return str(device), mesh
-
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise NotImplementedError for a flag that asks for a part the port
-    does not have."""
-    for name, (default, why) in UNPORTED.items():
-        if not hasattr(args, name):
-            continue
-        value = getattr(args, name)
-        ok = value in default if isinstance(default, tuple) \
-            else value == default
-        if not ok:
-            raise NotImplementedError(f"--{name} {value} is {why}")
 
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:

@@ -14,7 +14,7 @@ import os
 
 import torch
 
-from mtasr_tpu_torch.cli.args import add_device_arg, refuse_unported
+from mtasr_tpu_torch.cli.args import add_device_arg
 from mtasr_tpu_torch.data.tokenizer import CharTokenizer, HFTokenizer
 from mtasr_tpu_torch.utils import model_io
 
@@ -68,7 +68,6 @@ def random_config(geo: str, tokenizer, sp):
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    refuse_unported(args)
 
     tokenizer = (HFTokenizer(args.tokenizer_name) if args.tokenizer_name
                  else CharTokenizer())

@@ -22,7 +22,7 @@ import torch
 from mtasr_tpu_torch.api import resolve_tokenizer
 from mtasr_tpu_torch.cli.args import (
     add_data_args, add_device_arg, add_generation_args, add_model_args,
-    add_training_args, csv, refuse_unported, setup_distributed,
+    add_training_args, csv, setup_distributed,
 )
 from mtasr_tpu_torch.config import (
     DataConfig, GenerationConfig, TrainingConfig,
@@ -93,7 +93,6 @@ def main(argv=None):
     argv = json_argv(argv if argv is not None else sys.argv[1:])
     args = build_argparser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    refuse_unported(args)
     device, mesh = setup_distributed(args)
 
     resume_or_raise(args.output_dir, overwrite=args.overwrite_output_dir)

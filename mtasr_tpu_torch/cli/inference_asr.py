@@ -3,8 +3,12 @@
 search (`--num_beams`, `--length_penalty`), speculative greedy decoding
 drafted by the CTC heads (`--speculative ctc`, `--spec_k`), or the
 one-shot CTC decode (`--ctc_decoding`); int8 serving through the streamed
-load (`--quantize`, `--quantize_scope`, `--kv_quant`). Writes `label.<i>`
-and `decod.<i>` (utterance id + text) for shard i of `--num_shards`, and
+load (`--quantize`, `--quantize_scope`, `--kv_quant`), or, with
+`--pipelined`, greedy or sampled decoding of each run of consecutive
+batches of one shape as one stream (`generate/pipelined.py`: the encode of
+a batch under the decode of the one before; the same tokens). Writes
+`label.<i>` and `decod.<i>` (utterance id + text) for shard i of
+`--num_shards`, and
 with one shard, or `--merge` afterwards, the merged `label`, `decod` and
 the `wer` report.
 
@@ -14,6 +18,7 @@ the `wer` report.
 from __future__ import annotations
 
 import argparse
+import itertools
 import logging
 import os
 
@@ -22,7 +27,7 @@ import torch
 from mtasr_tpu_torch.api import load_for_serving, resolve_tokenizer
 from mtasr_tpu_torch.cli.args import (
     add_data_args, add_device_arg, add_generation_args, add_model_args,
-    refuse_unported, setup_distributed,
+    setup_distributed,
 )
 from mtasr_tpu_torch.config import DataConfig, GenerationConfig
 from mtasr_tpu_torch.data.audio import load_kaldi_dir
@@ -31,6 +36,7 @@ from mtasr_tpu_torch.data.pipeline import (
 )
 from mtasr_tpu_torch.generate.beam import beam_generate
 from mtasr_tpu_torch.generate.engine import generate, generate_ctc
+from mtasr_tpu_torch.generate.pipelined import generate_pipelined
 from mtasr_tpu_torch.parallel import multihost
 from mtasr_tpu_torch.parallel.mesh import shard_model
 from mtasr_tpu_torch.utils.wer import Calculator, clean_decoded_text
@@ -97,7 +103,7 @@ def merge_and_score(args) -> str:
 
 def check_flags(args) -> None:
     """The JAX CLI's refusal of incompatible decode flags, before any
-    load, then the refusal of flags whose part is not ported."""
+    load."""
     if args.pipelined and (args.ctc_decoding or args.num_beams > 1
                            or args.speculative):
         raise SystemExit("--pipelined applies to plain (greedy/sampled) "
@@ -109,7 +115,31 @@ def check_flags(args) -> None:
         raise SystemExit("beam search here is deterministic (HF "
                          "do_sample=False semantics); drop --do_sample or "
                          "--num_beams")
-    refuse_unported(args)
+
+
+_FEED = ("input_values", "audio_mask", "prompt_ids")
+
+
+def pipelined_runs(model, cfg, batches, gen, generator):
+    """(utterance ids, sequences) for every batch: each run of consecutive
+    batches whose decode inputs have one shape is one `generate_pipelined`
+    stream (a change of shape ends the run, as in the JAX CLI). A run is
+    read lazily, batch by batch, so the stream holds two batches' audio at
+    a time, not the run's."""
+    def shapes(b):
+        return tuple((k, b.arrays[k].shape) for k in _FEED if k in b.arrays)
+    for _, run in itertools.groupby(batches, key=shapes):
+        ids = []
+
+        def feeds(run=run, ids=ids):
+            for b in run:
+                ids.append(b.utt_ids)
+                yield {k: torch.from_numpy(b.arrays[k]) for k in _FEED
+                       if k in b.arrays}
+        outs = generate_pipelined(model, cfg, feeds(), gen=gen,
+                                  generator=generator)
+        for utt_ids, out in zip(ids, outs):
+            yield utt_ids, out.sequences
 
 
 def main(argv=None):
@@ -159,36 +189,41 @@ def main(argv=None):
     decod_path = os.path.join(out_dir, f"decod.{args.shard_index}")
     if not writer:
         label_path = decod_path = os.devnull
+
+    def decode(batch):
+        wav = torch.from_numpy(batch.arrays["input_values"]).to(device)
+        amask = torch.from_numpy(batch.arrays["audio_mask"]).to(device)
+        pr = batch.arrays.get("prompt_ids")
+        pr = None if pr is None else torch.from_numpy(pr)
+        if args.ctc_decoding:
+            return generate_ctc(model, cfg, wav, amask,
+                                max_out_len=args.max_length)[0]
+        if args.num_beams > 1:
+            return beam_generate(
+                model, cfg, wav, amask, prompt_ids=pr,
+                num_beams=args.num_beams, max_new_tokens=args.max_length,
+                length_penalty=args.length_penalty, kv_quant=args.kv_quant,
+                encode_chunk=args.encode_chunk).sequences[:, 0]
+        return generate(model, cfg, wav, amask, prompt_ids=pr, gen=gen,
+                        generator=sampler).sequences
+
+    batches = batches_from_examples(
+        examples, cfg, dc, args.batch_size, training=False, shuffle=False,
+        drop_last=False, shard_index=args.shard_index,
+        num_shards=args.num_shards)
+    decoded = (pipelined_runs(model, cfg, batches, gen, sampler)
+               if args.pipelined
+               else ((b.utt_ids, decode(b)) for b in batches))
     with open(label_path, "w") as label_f, open(decod_path, "w") as decod_f:
-        for batch in batches_from_examples(
-                examples, cfg, dc, args.batch_size, training=False,
-                shuffle=False, drop_last=False,
-                shard_index=args.shard_index, num_shards=args.num_shards):
-            wav = torch.from_numpy(batch.arrays["input_values"]).to(device)
-            amask = torch.from_numpy(batch.arrays["audio_mask"]).to(device)
-            pr = batch.arrays.get("prompt_ids")
-            pr = None if pr is None else torch.from_numpy(pr)
-            if args.ctc_decoding:
-                seqs, _ = generate_ctc(model, cfg, wav, amask,
-                                       max_out_len=args.max_length)
-            elif args.num_beams > 1:
-                seqs = beam_generate(
-                    model, cfg, wav, amask, prompt_ids=pr,
-                    num_beams=args.num_beams, max_new_tokens=args.max_length,
-                    length_penalty=args.length_penalty,
-                    kv_quant=args.kv_quant,
-                    encode_chunk=args.encode_chunk).sequences[:, 0]
-            else:
-                seqs = generate(model, cfg, wav, amask, prompt_ids=pr,
-                                gen=gen, generator=sampler).sequences
+        for utt_ids, seqs in decoded:
             seqs = seqs.cpu().numpy()
-            for i, utt_id in enumerate(batch.utt_ids):
+            for i, utt_id in enumerate(utt_ids):
                 # <sc> is kept as a token in both streams
                 hyp = clean_decoded_text(
                     tokenizer.decode(seqs[i], skip_special_tokens=False))
                 label_f.write(f"{utt_id} {clean_decoded_text(refs[utt_id])}\n")
                 decod_f.write(f"{utt_id} {hyp}\n")
-            n_done += len(batch.utt_ids)
+            n_done += len(utt_ids)
             logger.info("decoded %d utts", n_done)
 
     if args.num_shards == 1 and writer:

@@ -25,7 +25,7 @@ import os
 import subprocess
 import sys
 
-from mtasr_tpu_torch.cli.args import add_device_arg, refuse_unported
+from mtasr_tpu_torch.cli.args import add_device_arg
 
 
 def encode_run_name(args) -> str:
@@ -174,7 +174,6 @@ def run_stage(args, stage: int, model_dir: str, exp_dir: str) -> None:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    refuse_unported(args)
     run_name = encode_run_name(args)
     model_dir = os.path.join(args.root, "models", run_name)
     exp_dir = os.path.join(args.root, "exp", run_name)

@@ -9,7 +9,9 @@ input order within a bucket; the caller puts the results back in order.
 From a Kaldi directory (`data/audio.py::load_kaldi_dir`), `prepare_examples`
 tokenizes each utterance and filters it by duration (min < n < max); a
 lazy example reads only the WAV header and loads its samples when it is
-collated, so memory follows the batch, not the dataset. It can run in a
+collated (a batch's rows decoded in parallel by the native loader,
+`utils/native.py`, which the JAX package's `collate` uses too), so memory
+follows the batch, not the dataset. It can run in a
 worker pool and keep a JSONL cache stamped with the settings that made
 it.
 Training: `collate(..., training=True)` adds the label surgery
@@ -36,6 +38,9 @@ from mtasr_tpu_torch.data.audio import (
 from mtasr_tpu_torch.data.labels import build_training_arrays
 from mtasr_tpu_torch.data.specaugment import compute_mask_indices
 from mtasr_tpu_torch.data.tokenizer import build_prompt_and_input
+from mtasr_tpu_torch.utils.native import (
+    wav_header_native, wav_load_batch_native,
+)
 
 
 @dataclass
@@ -60,10 +65,15 @@ class PreparedExample:
 
 
 def _wav_duration_samples(path: str, target_sr: int) -> int:
-    """Samples at `target_sr` from the WAV header alone (scipy
+    """Samples at `target_sr` from the WAV header alone, read by the
+    native loader (`utils/native.py`) or, without it, `wave` (scipy
     `resample_poly`'s output length, ceil(n * up / down))."""
-    with wave.open(path, "rb") as w:
-        n, sr = w.getnframes(), w.getframerate()
+    hdr = wav_header_native(path)
+    if hdr is not None:
+        n, sr = hdr[0], hdr[1]
+    else:
+        with wave.open(path, "rb") as w:
+            n, sr = w.getnframes(), w.getframerate()
     if sr == target_sr:
         return n
     from math import gcd
@@ -198,7 +208,31 @@ def collate(examples: Sequence[PreparedExample],
     S = bucket_length(max(e.n_samples for e in examples), dc)
     wav = np.zeros((B, S), np.float32)
     amask = np.zeros((B, S), np.int32)
+    # the lazy rows that fit the bucket are decoded and normalised by the
+    # native loader, in parallel, straight into the batch; a row it cannot
+    # serve exactly (another sample rate, another encoding, no library)
+    # takes the Python reader below, which normalises over the whole
+    # waveform (so a row longer than the bucket goes there too)
+    native_rows = [i for i, e in enumerate(examples)
+                   if e.input_values is None and e.wav_path is not None
+                   and e.n_samples <= S]
+    loaded = set()
+    if native_rows:
+        sub = wav[native_rows] if len(native_rows) < B else wav
+        res = wav_load_batch_native(
+            [examples[i].wav_path for i in native_rows], sub,
+            dc.sampling_rate)
+        if res is not None:
+            lens, status = res
+            for j, i in enumerate(native_rows):
+                if status[j] == 0:
+                    amask[i, :lens[j]] = 1
+                    loaded.add(i)
+            if len(native_rows) < B and loaded:
+                wav[native_rows] = sub
     for i, e in enumerate(examples):
+        if i in loaded:
+            continue
         w = e.waveform(dc)            # a lazy example loads from disk here
         n = min(len(w), S)
         wav[i, :n] = w[:n]

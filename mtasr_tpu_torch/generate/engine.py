@@ -30,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -236,11 +236,14 @@ def _decode(model: SpeechEncoderDecoderModel,
             total_prefill: int, dtype: torch.dtype, gen: GenerationConfig,
             max_new_tokens: int,
             generator: Optional[torch.Generator],
-            layer_callback=None, pick: Optional[_Picker] = None
+            layer_callback=None, pick: Optional[_Picker] = None,
+            after_step: Optional[Callable[[int], None]] = None
             ) -> GenerateOutput:
     """The step loop after the prefill; `layer_callback` the prefill's
     (the adapters, with the memory keys and values it kept); `pick` the
-    token choice (`_Picker`; by default this batch's own)."""
+    token choice (`_Picker`; by default this batch's own); `after_step`
+    is called with the count of steps run after each step (the pipelined
+    stream's encoder layers go there)."""
     dec, dec_cfg = model.decoder, cfg.decoder
     B = last_logits.shape[0]
     eos_id, pad_id = cfg.eos_token_id, cfg.pad_token_id
@@ -267,6 +270,8 @@ def _decode(model: SpeechEncoderDecoderModel,
         done = done | (nxt == eos_id)
         cur = nxt
         steps += 1
+        if after_step is not None:
+            after_step(steps)
     return GenerateOutput(sequences=out, lengths=(out != pad_id).sum(1),
                           steps=steps)
 
@@ -334,6 +339,16 @@ def _generate(model, cfg, input_values, audio_mask, prompt_ids, gen,
                                gen.encode_chunk)
     prefill_ids, splice_index = prompt_layout(cfg, B, prompt_ids,
                                               input_values.device)
+    return decode_encoded(model, cfg, enc, prefill_ids, splice_index, gen,
+                          int(max_new_tokens), pick)
+
+
+def decode_encoded(model, cfg, enc: EncodedSpeech, prefill_ids: torch.Tensor,
+                   splice_index: int, gen: GenerationConfig,
+                   max_new_tokens: int, pick: _Picker,
+                   after_step: Optional[Callable[[int], None]] = None
+                   ) -> GenerateOutput:
+    """Prefill and decode an encoded batch (`_prefill`, `_decode`)."""
     Lp = prefill_ids.shape[1]
     S_max = Lp + enc.encoder_hidden_states.shape[1] + max_new_tokens
     # the adapters' memory keys and values, computed once a request and a
@@ -343,7 +358,7 @@ def _generate(model, cfg, input_values, audio_mask, prompt_ids, gen,
         model, cfg, enc, prefill_ids, splice_index, S_max, gen.kv_quant, cb)
     return _decode(model, cfg, cache, last_logits, n_valid, Lp,
                    total_prefill, enc.encoder_hidden_states.dtype, gen,
-                   int(max_new_tokens), pick.generator, cb, pick)
+                   max_new_tokens, pick.generator, cb, pick, after_step)
 
 
 @torch.inference_mode()

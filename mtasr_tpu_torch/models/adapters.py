@@ -17,6 +17,10 @@ in how they mix it back in:
 uses True = valid). The scores are float32 whatever the activations' dtype,
 and padded columns get -1e30, so a memory that is all padding gives finite
 output. Parameter names are the JAX tree's, the scalars 0-d parameters.
+
+`SharedCore` / `shared_core_forward` are the JAX module's shared core (one
+tiny adapter for every layer) behind per-layer residual MLPs; no config
+wires them, in the JAX package or here.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mtasr_tpu_torch.models.layers import layer_norm, linear
@@ -192,3 +197,57 @@ def prune_lora_ranks(ad: CrossAttentionAdapter, gate_threshold: float = 0.1,
     if new_r is not None and hasattr(ad, "lora_alpha"):
         ad.lora_scale.fill_(float(ad.lora_alpha) / max(1, new_r))
     return new_r or 0
+
+
+class _MLP(nn.ModuleDict):
+    def __init__(self, hidden_size: int, rank: int):
+        super().__init__({"0": nn.Linear(hidden_size, rank),
+                          "2": nn.Linear(rank, hidden_size)})
+
+
+class _LayerWrapper(nn.Module):
+    def __init__(self, hidden_size: int, rank: int, pre: bool, post: bool):
+        super().__init__()
+        if pre:
+            self.pre_mlp = _MLP(hidden_size, rank)
+        if post:
+            self.post_mlp = _MLP(hidden_size, rank)
+
+
+class SharedCore(nn.Module):
+    """`init_shared_core_params`: one tiny adapter (`core`) shared by the
+    layers, and each layer's residual SiLU MLPs of `mlp_rank` before
+    (`use_pre_mlp`) and after (`use_post_mlp`) it."""
+
+    def __init__(self, hidden_size: int, mem_dim: int, attn_dim: int = 512,
+                 n_layers: int = 1, mlp_rank: int = 256,
+                 use_pre_mlp: bool = True, use_post_mlp: bool = False):
+        super().__init__()
+        self.core = CrossAttentionAdapter("tiny", hidden_size, mem_dim,
+                                          attn_dim)
+        self.wrappers = nn.ModuleDict({
+            str(i): _LayerWrapper(hidden_size, mlp_rank, use_pre_mlp,
+                                  use_post_mlp) for i in range(n_layers)})
+
+
+def _residual_mlp(m: _MLP, x: torch.Tensor) -> torch.Tensor:
+    return x + linear(m["2"], F.silu(linear(m["0"], x)))
+
+
+def shared_core_forward(p: SharedCore, layer_idx: int, hidden: torch.Tensor,
+                        mem: Optional[torch.Tensor],
+                        mem_mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Layer `layer_idx`'s pre-MLP residual, the shared core's
+    cross-attention onto mem (mem_mask True = padding), its post-MLP
+    residual; hidden itself without a memory."""
+    if mem is None:
+        return hidden
+    w = p.wrappers[str(layer_idx)]
+    x = hidden
+    if hasattr(w, "pre_mlp"):
+        x = _residual_mlp(w.pre_mlp, x)
+    x = adapter_forward(p.core, x, mem, mem_mask)
+    if hasattr(w, "post_mlp"):
+        x = _residual_mlp(w.post_mlp, x)
+    return x

@@ -148,7 +148,19 @@ def encode_feats(model: SpeechEncoderDecoderModel,
     out = wavlm_forward(model.encoder, cfg.encoder, input_values, audio_mask,
                         mask_time_indices=mask_time_indices,
                         deterministic=deterministic, generator=generator)
-    mixed, speech = out.encoder_hidden_state, out.last_hidden_state
+    return speech_feats(model, cfg, out.encoder_hidden_state,
+                        out.last_hidden_state, audio_mask,
+                        deterministic=deterministic, generator=generator)
+
+
+def speech_feats(model: SpeechEncoderDecoderModel,
+                 cfg: SpeechEncoderDecoderConfig, mixed: torch.Tensor,
+                 speech: torch.Tensor, audio_mask, *,
+                 deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None) -> SpeechFeats:
+    """Stage A from the encoder's outputs (the 50 Hz features `mixed`, the
+    adapter's `speech`): the masks and, with `talker_ctc`, the
+    separator."""
     B, T8 = speech.shape[:2]
     T0 = mixed.shape[1]
     if audio_mask is not None:

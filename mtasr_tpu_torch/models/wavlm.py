@@ -414,18 +414,16 @@ def wavlm_adapter(ad: _Adapter, cfg: WavLMConfig, hidden: torch.Tensor):
     return hidden, tap
 
 
-def wavlm_forward(model: WavLM, cfg: WavLMConfig, input_values: torch.Tensor,
-                  attention_mask: Optional[torch.Tensor] = None, *,
-                  mask_time_indices: Optional[torch.Tensor] = None,
-                  deterministic: bool = True,
-                  generator: Optional[torch.Generator] = None
-                  ) -> WavLMOutput:
-    """input_values [B, S] normalised waveform; attention_mask [B, S];
-    mask_time_indices [B, T] bool (SpecAugment, drawn on the host). Dropout
-    runs unless `deterministic`, from `generator` (on the model's device).
-
-    The waveform is cast to the model's dtype first, so a bf16 model runs
-    bf16 end to end (the JAX package computes in the waveform's dtype)."""
+def feature_frontend(model: WavLM, cfg: WavLMConfig,
+                     input_values: torch.Tensor,
+                     attention_mask: Optional[torch.Tensor] = None, *,
+                     mask_time_indices: Optional[torch.Tensor] = None,
+                     deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None):
+    """The conv feature encoder (in the model's dtype), the frames' mask,
+    the feature projection, its dropout and SpecAugment's masked frames:
+    (hidden [B, T, E], feat_mask [B, T] or None, the normalised conv
+    features)."""
     dtype = model.feature_projection.layer_norm.weight.dtype
     extract = feature_encoder(model.feature_extractor, cfg,
                               input_values.to(dtype).contiguous())
@@ -441,6 +439,25 @@ def wavlm_forward(model: WavLM, cfg: WavLMConfig, input_values: torch.Tensor,
     if mask_time_indices is not None and hasattr(model, "masked_spec_embed"):
         hidden = torch.where(mask_time_indices.to(torch.bool)[:, :, None],
                              model.masked_spec_embed.to(hidden.dtype), hidden)
+    return hidden, feat_mask, norm_features
+
+
+def wavlm_forward(model: WavLM, cfg: WavLMConfig, input_values: torch.Tensor,
+                  attention_mask: Optional[torch.Tensor] = None, *,
+                  mask_time_indices: Optional[torch.Tensor] = None,
+                  deterministic: bool = True,
+                  generator: Optional[torch.Generator] = None
+                  ) -> WavLMOutput:
+    """input_values [B, S] normalised waveform; attention_mask [B, S];
+    mask_time_indices [B, T] bool (SpecAugment, drawn on the host). Dropout
+    runs unless `deterministic`, from `generator` (on the model's device).
+
+    The waveform is cast to the model's dtype first, so a bf16 model runs
+    bf16 end to end (the JAX package computes in the waveform's dtype)."""
+    hidden, feat_mask, norm_features = feature_frontend(
+        model, cfg, input_values, attention_mask,
+        mask_time_indices=mask_time_indices, deterministic=deterministic,
+        generator=generator)
     hidden = wavlm_encoder(model.encoder, cfg, hidden, feat_mask,
                            deterministic, generator)
     if cfg.add_adapter:

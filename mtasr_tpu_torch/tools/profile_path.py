@@ -108,7 +108,9 @@ def _own_kernels() -> Tuple[str, ...]:
 
 def profiled(fn: Callable, trace_path=None, inference: bool = True):
     """(result, device busy ms, top kernels [(name, ms, count)]: the ten
-    largest by device time and the port's own kernels)."""
+    largest by device time and the port's own kernels). The regions that
+    `utils/profiling.annotate` names also appear on the device's timeline;
+    they are not device work and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -117,7 +119,8 @@ def profiled(fn: Callable, trace_path=None, inference: bool = True):
         with _mode(inference):
             out = fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     by_name: Dict[str, List[float]] = {}
     for e in events:
         d = by_name.setdefault(e.name[:90], [0.0, 0])

@@ -9,9 +9,10 @@ the diagonal. Tokens are split on whitespace (or, in char mode, into CJK
 characters and runs of other characters, punctuation dropped, `<tags>`
 whole), upper-cased unless case-sensitive, and stripped of `<...>` tags
 before they are aligned. `summary()` is the reference report's line.
-Everything runs in Python: the JAX module's g++ fast paths
-(`utils/native.py`) give the same numbers and are not ported. The JAX
-`Calculator`'s ignore list, which no caller sets, is not ported either.
+The `Calculator` (with `use_native`, the default) and `cpwer` align in the
+native C++ of `utils/native.py` where it is built, as the JAX module does,
+and in Python otherwise: the same counts and alignments. The JAX
+`Calculator`'s ignore list, which no caller sets, is not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Sequence, Tuple
 
 from mtasr_tpu_torch.data.audio import read_scp
+from mtasr_tpu_torch.utils import native
 
 ALLOWED_SPECIAL_TOKENS = ("<sc>", "<bos_prompt>", "<eos_prompt>",
                           "<bos_speech>", "<eos_speech>", "<bos_response>",
@@ -161,21 +163,63 @@ def align(lab: Sequence[str], rec: Sequence[str]) -> EditStats:
     return stats
 
 
+def _from_ops(counts: Sequence[int], ops, lab: Sequence[str],
+              rec: Sequence[str]) -> EditStats:
+    """EditStats from the native counts and traceback (1 cor, 2 sub,
+    3 del, 4 ins, left to right), the alignment rebuilt on the host."""
+    stats = EditStats(*counts[:5])
+    i = j = 0
+    for op in ops:
+        if op in (1, 2):
+            stats.lab_align.append(lab[i])
+            stats.rec_align.append(rec[j])
+            i, j = i + 1, j + 1
+        elif op == 3:
+            stats.lab_align.append(lab[i])
+            stats.rec_align.append("")
+            i += 1
+        else:
+            stats.lab_align.append("")
+            stats.rec_align.append(rec[j])
+            j += 1
+    return stats
+
+
 class Calculator:
     """Accumulates edit statistics over utterances, word by word (or, with
-    `char_mode`, unit by unit)."""
+    `char_mode`, unit by unit). With `use_native` the alignment runs in
+    `utils/native.py`'s C++ where it is built, over ids this calculator
+    gives the tokens."""
 
     def __init__(self, char_mode: bool = False,
-                 case_sensitive: bool = False):
+                 case_sensitive: bool = False, use_native: bool = True):
         self.char_mode, self.case_sensitive = char_mode, case_sensitive
+        self.use_native = use_native
         self.total = EditStats()
         self.per_utt: Dict[str, EditStats] = {}
+        self._vocab: Dict[str, int] = {}
 
-    def calculate(self, utt_id: str, lab_text: str,
-                  rec_text: str) -> EditStats:
-        stats = align(
-            _tokens(lab_text, self.char_mode, self.case_sensitive),
-            _tokens(rec_text, self.char_mode, self.case_sensitive))
+    def _ids(self, tokens: Sequence[str]) -> List[int]:
+        return [self._vocab.setdefault(t, len(self._vocab)) for t in tokens]
+
+    def calculate(self, utt_id: str, lab_text: str, rec_text: str,
+                  need_alignment: bool = False) -> EditStats:
+        """The utterance's counts, added to the total; the alignment
+        (`lab_align` / `rec_align`) is filled with `need_alignment`, and
+        always on the Python path."""
+        lab = _tokens(lab_text, self.char_mode, self.case_sensitive)
+        rec = _tokens(rec_text, self.char_mode, self.case_sensitive)
+        stats = None
+        if self.use_native and need_alignment:
+            res = native.wer_align_ops_native(self._ids(lab), self._ids(rec))
+            if res is not None:
+                stats = _from_ops(res[0], res[1], lab, rec)
+        elif self.use_native:
+            counts = native.wer_align_native(self._ids(lab), self._ids(rec))
+            if counts is not None:
+                stats = EditStats(*counts)
+        if stats is None:
+            stats = align(lab, rec)
         self.per_utt[utt_id] = stats
         self.total.add(stats)
         return stats
@@ -194,7 +238,8 @@ def cpwer(ref_streams: Sequence[str], hyp_streams: Sequence[str],
           ) -> Tuple[float, Tuple[int, ...]]:
     """Concatenated minimum-permutation WER over K speaker streams: every
     assignment of hypothesis streams to reference streams is scored, the
-    first best (in `itertools.permutations` order) wins. Returns (WER %,
+    first best (in `itertools.permutations` order) wins, natively where the
+    library is built (the same order). Returns (WER %,
     the permutation: reference i is scored against hypothesis perm[i]).
     Stream lists of unequal length are padded with empty strings."""
     K = max(len(ref_streams), len(hyp_streams))
@@ -202,6 +247,13 @@ def cpwer(ref_streams: Sequence[str], hyp_streams: Sequence[str],
             list(ref_streams) + [""] * (K - len(ref_streams))]
     hyps = [_tokens(h, char_mode, case_sensitive) for h in
             list(hyp_streams) + [""] * (K - len(hyp_streams))]
+    vocab: Dict[str, int] = {}
+
+    def ids(toks):
+        return [vocab.setdefault(t, len(vocab)) for t in toks]
+    res = native.cpwer_native([ids(r) for r in refs], [ids(h) for h in hyps])
+    if res is not None:
+        return res
     best, best_perm = None, None
     for perm in itertools.permutations(range(K)):
         pairs = [align(refs[i], hyps[j]) for i, j in enumerate(perm)]
@@ -221,7 +273,8 @@ def score_files(ref_path: str, hyp_path: str, char_mode: bool = False,
     calc = Calculator(char_mode, case_sensitive)
     lines = []
     for utt_id, ref in refs.items():
-        s = calc.calculate(utt_id, ref, hyps.get(utt_id, ""))
+        s = calc.calculate(utt_id, ref, hyps.get(utt_id, ""),
+                           need_alignment=verbose)
         if verbose:
             lines += [f"utt: {utt_id}", "lab: " + " ".join(s.lab_align),
                       "rec: " + " ".join(s.rec_align),

@@ -107,8 +107,10 @@ def run_serve(spec):
     if mesh is not None:
         shard_model(model, cfg, mesh)
     model.eval()
-    wav = torch.from_numpy(spec["wav"])
-    amask = torch.from_numpy(spec["amask"])
+    wav = amask = None
+    if "wav" in spec:
+        wav = torch.from_numpy(spec["wav"])
+        amask = torch.from_numpy(spec["amask"])
     prompt = spec.get("prompt")
     prompt = None if prompt is None else torch.from_numpy(prompt)
     out = {}
@@ -146,6 +148,16 @@ def run_serve(spec):
         trans, lens = generate_ctc(model, cfg, wav, amask,
                                    max_out_len=spec["max_new_tokens"])
         out["sequences"], out["lengths"] = trans.numpy(), lens.numpy()
+    elif route == "pipelined":
+        from mtasr_tpu_torch.generate.pipelined import generate_pipelined
+        sampler = None if spec.get("sample_seed") is None else \
+            torch.Generator().manual_seed(spec["sample_seed"])
+        outs = generate_pipelined(
+            model, cfg, [{k: torch.from_numpy(v) for k, v in b.items()}
+                         for b in spec["stream"]],
+            gen=gen, max_new_tokens=spec["max_new_tokens"],
+            generator=sampler)
+        out["sequences"] = [o.sequences.numpy() for o in outs]
     else:
         raise ValueError(route)
     return out

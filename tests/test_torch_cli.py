@@ -203,16 +203,15 @@ def test_inference_cli_matches_jax_on_a_jax_created_dir(mini_dataset,
 
 def test_unported_flags_and_incompatible_combinations_refuse(
         tmp_path, mini_dataset):
-    """Flags of unported parts raise with their ROADMAP item; incompatible
-    decode flags exit. The bridge and adapter family's flags (item 6) are
+    """No flag of the JAX CLIs is refused any more; incompatible decode
+    flags exit. The bridge and adapter family's flags (item 6) are
     ported: the create CLI builds adapters, the fine-tune CLI trains with
     the flags passed onto the config, the inference CLI takes them. The
     decoding variants (item 7) run: `--speculative ctc` decodes the
-    directory to greedy's own text, `--num_beams 2` to the JAX CLI's."""
+    directory to greedy's own text, `--num_beams 2` to the JAX CLI's, and
+    `--pipelined` to the JAX CLI's `--pipelined` text."""
     common = ["--model_name_or_path", "unused", "--data_dir", "unused",
               "--output_dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tinference.main(common + ["--pipelined"])
     # data and tensor parallelism run (tests/test_torch_parallel*.py); a
     # grid that does not cover the ranks (one process here) raises
     for flags in (["--dp_size", "2"], ["--tp_size", "2"]):
@@ -238,7 +237,13 @@ def test_unported_flags_and_incompatible_combinations_refuse(
         out = _infer(model, mini_dataset, str(tmp_path / flags[0][2:]),
                      *flags)
         assert len(out.splitlines()) == 4
+    piped = _infer(model, mini_dataset, str(tmp_path / "pipe"),
+                   "--pipelined")
+    assert piped == _infer(model, mini_dataset, str(tmp_path / "jpipe"),
+                           "--pipelined", jax_cli=True)
+    assert len(piped.splitlines()) == 4
     greedy = _infer(model, mini_dataset, str(tmp_path / "greedy"))
+    assert piped == greedy
     assert _infer(model, mini_dataset, str(tmp_path / "spec"),
                   "--speculative", "ctc") == greedy
     beam = ("--num_beams", "2", "--length_penalty", "0.5")

@@ -1389,3 +1389,125 @@ def test_beam_gather_covers_the_int8_cache(gen):
     for (x, _), x0 in zip(leaves, before):
         assert torch.equal(x, x0[parent])
         assert not bool(x0[parent].flatten(1)[:, -1].any())
+
+
+# ---------------------------------------------------------------------------
+# the pipelined stream and the native host library
+# ---------------------------------------------------------------------------
+def _stream_batches(n=3, B=4, seconds=3):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    out = []
+    for i in range(n):
+        wav = torch.randn((B, 16000 * seconds), generator=g, device="cuda")
+        amask = torch.ones_like(wav, dtype=torch.int32)
+        amask[-1 - i % B, 16000 * seconds * (2 + i) // 5:] = 0
+        out.append({"input_values": wav, "audio_mask": amask})
+    return out
+
+
+def _sequential_counts(model, cfg, batches, gen_cfg, max_new):
+    from mtasr_tpu_torch.generate.engine import generate
+    from mtasr_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    seq = [generate(model, cfg, b["input_values"], b["audio_mask"],
+                    gen=gen_cfg, max_new_tokens=max_new) for b in batches]
+    torch.cuda.synchronize()
+    return seq, kernels.launch_counts()
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_pipelined_stream_on_the_card_equals_sequential_generate(gen,
+                                                                 kv_quant):
+    """Three batches: the next batch's frontend and layers on the second
+    CUDA stream, the same tokens and the same launches as sequential
+    `generate` (#1 once a batch, #2 once a layer a batch, #4 or #6 a
+    decoder layer a step)."""
+    from mtasr_tpu_torch.config import GenerationConfig
+    from mtasr_tpu_torch.generate.pipelined import generate_pipelined
+    from mtasr_tpu_torch.ops import kernels
+    cfg, _, model = _two_layer_model()
+    batches = _stream_batches()
+    g = GenerationConfig(kv_quant=kv_quant)
+    seq, want = _sequential_counts(model, cfg, batches, g, 24)
+    kernels.reset_launch_counts()
+    outs = generate_pipelined(model, cfg, batches, gen=g, max_new_tokens=24)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for o, s in zip(outs, seq):
+        assert torch.equal(o.sequences, s.sequences)
+    decode = "decode_attention_int8" if kv_quant else "decode_attention"
+    assert counts == want
+    assert counts["conv0_fused"] == 3 and counts["flash_attention"] == 6
+    assert counts[decode] == 2 * sum(o.steps for o in outs) > 0
+
+
+def test_pipelined_stream_runs_the_layers_left_when_rows_end_early(
+        gen, monkeypatch):
+    """Every row ends early (a token is eos when its argmax is even), so
+    each batch's loop stops at an all-done check before the next batch's
+    layer 1 was due (k = 23 steps): that layer runs after the loop, and
+    the next batch's tokens still equal sequential generate's."""
+    from mtasr_tpu_torch.config import GenerationConfig
+    from mtasr_tpu_torch.generate import engine
+    from mtasr_tpu_torch.generate.pipelined import generate_pipelined
+    from mtasr_tpu_torch.ops import kernels
+    cfg, _, model = _two_layer_model()
+    real = engine._sample_token
+
+    def eos_often(logits, g, generator):
+        tok = real(logits, g, generator)
+        return torch.where(tok % 2 == 0, cfg.eos_token_id, tok)
+    monkeypatch.setattr(engine, "_sample_token", eos_often)
+    batches = _stream_batches()
+    g = GenerationConfig()
+    seq, want = _sequential_counts(model, cfg, batches, g, 24)
+    kernels.reset_launch_counts()
+    outs = generate_pipelined(model, cfg, batches, gen=g, max_new_tokens=24)
+    torch.cuda.synchronize()
+    for o, s in zip(outs, seq):
+        assert torch.equal(o.sequences, s.sequences)
+        assert o.steps == s.steps
+    assert max(o.steps for o in outs[:-1]) < 23, [o.steps for o in outs]
+    assert kernels.launch_counts() == want
+
+
+def test_native_loader_builds_and_loads_on_the_card_machine(gen, tmp_path):
+    """g++ builds the port's two host libraries there; a batch of WAVs
+    (one at 8 kHz: status 2) loads natively within 2e-4 of the Python
+    reader, and collate serves the 8 kHz row through Python."""
+    import numpy as np
+    from mtasr_tpu_torch.config import DataConfig
+    from mtasr_tpu_torch.data import pipeline
+    from mtasr_tpu_torch.data.audio import (
+        Utterance, normalize_waveform, read_wav, write_wav,
+    )
+    from mtasr_tpu_torch.data.tokenizer import CharTokenizer
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.utils import native
+    assert native.get_lib("audio") is not None
+    assert native.get_lib("wer") is not None
+    rng = np.random.default_rng(0)
+    paths = []
+    for i, (n, sr) in enumerate([(16000, 16000), (12000, 16000),
+                                 (8000, 8000)]):
+        p = str(tmp_path / f"u{i}.wav")
+        write_wav(p, rng.standard_normal(n) * 0.1, sr=sr)
+        paths.append(p)
+    buf = np.zeros((3, 16000), np.float32)
+    lens, status = native.wav_load_batch_native(paths, buf, 16000)
+    assert status.tolist() == [0, 0, 2] and lens.tolist()[:2] == [16000,
+                                                                  12000]
+    for i in range(2):
+        ref = normalize_waveform(read_wav(paths[i])[0])
+        np.testing.assert_allclose(buf[i, :lens[i]], ref, atol=2e-4)
+    tok = CharTokenizer()
+    tok.add_special_tokens()
+    dc = DataConfig(min_duration_in_seconds=0.0)
+    cfg, _ = full_width.config()
+    exs = [pipeline.prepare_example(Utterance(f"u{i}", p, "a"), tok, dc,
+                                    lazy=True) for i, p in enumerate(paths)]
+    batch = pipeline.collate(exs, cfg, dc)
+    assert batch.arrays["audio_mask"].sum(1).tolist() == [16000, 12000,
+                                                          16000]
+    assert native.wer_align_native([1, 2, 3], [1, 3]) == (3, 2, 0, 1, 0)

@@ -6,11 +6,14 @@ takes a train step through `Trainer` (which ends with a checkpoint), saves
 and reloads a model directory through the port's own safetensors I/O with
 the `safetensors` package blocked too, then a hybrid SOT+CTC model through
 a PCGrad `Trainer` step and `transcribe_ctc`, then a model of the bridge and
-adapter family through `generate`, and checks that no kernel was launched
-(CPU tensors take the plain versions). No file of the port, and not
-`chip_smoke.py`, imports jax, the JAX package or `safetensors`, and
-`transformers` is imported only inside `HFTokenizer`. Every port test file
-pins torch to one intra-op thread."""
+adapter family through `generate`, then a pipelined stream of two batches
+and a `collate` of WAV files read by the port's native loader, and checks
+that no kernel was launched (CPU tensors take the plain versions). No file
+of the port, and not `chip_smoke.py`, imports jax, the JAX package or
+`safetensors`, or builds from the repo-root `native/`, and `transformers`
+is imported only inside `HFTokenizer`. Every module of the JAX package has
+its counterpart in the port, but for the two named exceptions. Every port
+test file pins torch to one intra-op thread."""
 import os
 import pathlib
 import re
@@ -98,7 +101,7 @@ model = init_random(cfg, g, "cpu", torch.float32)
 init_decoder_lora(model, g, r=2, alpha=4.0)
 ex = [PreparedExample(f"u{i}", wav[0].numpy(), [],
                       [5, 6, sp.sc_token_id, 7]) for i in range(2)]
-out = tempfile.mkdtemp()
+out = out_dir = tempfile.mkdtemp()
 trainer = Trainer(cfg, TrainingConfig(max_steps=1, warmup_steps=0,
                                       output_dir=out),
                   dc, model, freeze_kwargs=dict(freeze_decoder=True))
@@ -136,6 +139,32 @@ model = init_random(fcfg, g, "cpu", torch.float32)
 out = generate(model, fcfg, wav, amask, max_new_tokens=3)
 assert out.sequences.shape == (2, 3)
 assert set(kernels.launch_counts().values()) == {0}, kernels.launch_counts()
+# a pipelined stream of two batches: the tokens of sequential generate
+from mtasr_tpu_torch.generate.pipelined import generate_pipelined
+model = init_random(cfg, g, "cpu", torch.float32)
+stream = [{"input_values": wav, "audio_mask": amask},
+          {"input_values": wav.flip(1), "audio_mask": amask}]
+outs = generate_pipelined(model, cfg, stream, max_new_tokens=4)
+for b, o in zip(stream, outs):
+    ref = generate(model, cfg, b["input_values"], b["audio_mask"],
+                   max_new_tokens=4)
+    assert torch.equal(o.sequences, ref.sequences)
+assert set(kernels.launch_counts().values()) == {0}, kernels.launch_counts()
+# collate through the native loader (built under the port's native/)
+from mtasr_tpu_torch.data import pipeline as tpl
+from mtasr_tpu_torch.data.audio import Utterance, write_wav
+from mtasr_tpu_torch.utils import native
+utts = []
+for i, n in enumerate((3000, 4000)):
+    p = os.path.join(out_dir, f"u{i}.wav")
+    write_wav(p, np.random.default_rng(i).standard_normal(n) * 0.1)
+    utts.append(Utterance(f"u{i}", p, "a b"))
+exs = tpl.prepare_examples(utts, tok, dc, lazy=True)
+batch = tpl.collate(exs, cfg, dc)
+assert batch.arrays["audio_mask"].sum(1).tolist() == [3000, 4000]
+assert native.get_lib("audio") is not None
+assert str(native.library_path("audio")).startswith(
+    os.path.join(os.path.dirname(mtasr_tpu_torch.__file__), "native"))
 loaded = {m.split(".")[0] for m in sys.modules if sys.modules[m]}
 assert not loaded & {"jax", "mtasr_tpu", "safetensors", "transformers"}, \
     loaded
@@ -173,6 +202,44 @@ def test_no_port_file_imports_the_jax_package():
 def test_no_port_file_imports_safetensors():
     assert _offenders(re.compile(
         r"^\s*(import|from)\s+safetensors\b", re.M)) == []
+
+
+def test_no_port_file_builds_from_the_repo_root_native_dir():
+    """The port compiles its own copies of the host C++
+    (`mtasr_tpu_torch/native/`), never the JAX package's `native/`."""
+    from mtasr_tpu_torch.utils import native
+    assert native.NATIVE == ROOT / "mtasr_tpu_torch" / "native"
+    assert sorted(p.name for p in native.NATIVE.glob("*.cpp")) == \
+        ["audio_loader.cpp", "wer_kernel.cpp"]
+    assert _offenders(re.compile(
+        r"parents\[2\]\s*/\s*[\"']native|[\"']\.\.[\"'],\s*[\"']\.\.[\"']"
+        r"|_ROOT,\s*[\"']native")) == []
+
+
+# JAX modules without a module of the same path in the port, and why
+NOT_PORTED = {
+    "ops/pallas": "the Pallas kernels: each is a CUDA kernel under "
+                  "mtasr_tpu_torch/csrc/ with its wrapper and plain version "
+                  "in mtasr_tpu_torch/ops/kernels/ (spmd.py's custom "
+                  "partitioning is the ranks' shard-local calls, "
+                  "parallel/)",
+    "utils/torch_interop.py": "the tests' bridge from JAX parameter trees "
+                              "to the port's state dicts",
+}
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    jax_pkg, port = ROOT / "mtasr_tpu", ROOT / "mtasr_tpu_torch"
+    missing = []
+    for f in sorted(jax_pkg.rglob("*.py")):
+        rel = f.relative_to(jax_pkg).as_posix()
+        if any(rel == k or rel.startswith(k + "/") for k in NOT_PORTED):
+            continue
+        if not (port / rel).exists():
+            missing.append(rel)
+    assert missing == []
+    for k in NOT_PORTED:
+        assert (jax_pkg / k).exists(), k
 
 
 def test_transformers_is_imported_only_inside_hftokenizer():

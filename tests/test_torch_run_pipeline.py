@@ -6,9 +6,8 @@ CPU, after `tests/test_pipeline_stage6.py`:
   say, under the JAX `encode_run_name`;
 * stages 4-6 (decode, decode another set, decode in 2 shards then merge)
   on that run directory write the `decod` and `wer` files the JAX
-  pipeline's stages 4-6 write on a copy of it. The JAX CLI reads lazy WAVs
-  through its native loader when it is built, which rounds the
-  normalisation otherwise; both sides take the Python reader here;
+  pipeline's stages 4-6 write on a copy of it; both read the lazy WAVs
+  through their native loaders (the same bits);
 * stage 6 at `--dp_size 2` and at `--tp_size 2` runs the inference CLI
   on two ranks under `torch.distributed.run` and writes the
   single-process files.
@@ -22,7 +21,6 @@ import torch
 
 from mtasr_tpu.cli import run_pipeline as jpipe
 from mtasr_tpu.data.audio import write_wav
-from mtasr_tpu.utils import native as jnative
 from mtasr_tpu_torch.cli import run_pipeline as tpipe
 
 # one intra-op thread: the suite's workers share the cores
@@ -51,9 +49,7 @@ def _argv(root, data, *extra):
             "--dp_size", "1", *extra]
 
 
-def test_stages_match_jax(tmp_path, monkeypatch):
-    monkeypatch.setattr(jnative, "wav_load_batch_native", lambda *a, **k:
-                        None)
+def test_stages_match_jax(tmp_path):
     data = _kaldi(tmp_path / "data", 4, 0)
     evals = _kaldi(tmp_path / "eval", 2, 1)
     root_j, root_t = str(tmp_path / "jax"), str(tmp_path / "port")
