@@ -14,6 +14,9 @@
     python3 chip_smoke.py --only-pipelined # phases 1, 2 and 17 alone; its
                                            # last line {"ok": true, "only":
                                            # "pipelined"}
+    python3 chip_smoke.py --only-8b        # phases 1, 2 and 18 alone; its
+                                           # last line {"ok": true, "only":
+                                           # "8b"}
 
 Phases, one line each, any failure exits non-zero:
 
@@ -99,9 +102,11 @@ Phases, one line each, any failure exits non-zero:
     4 steps straight, and 2 steps resumed to 4, on deterministic
     algorithms: the trainable tensors and AdamW moments of checkpoint-4
     bit-equal (within RESUME_TOL by rel-L2 where an op has no
-    deterministic implementation), the checkpoint's size and write time
-    (#8-#10 launch); (5) `cli.inference_asr --quantize w8a8 --kv_quant` and
-    `--ctc_decoding` on a hybrid model directory over the same Kaldi
+    deterministic implementation), the checkpoint's size, the time
+    `save_checkpoint` took to return (the host copy) and the time until its
+    background write committed (#8-#10 launch); (5) `cli.inference_asr
+    --quantize w8a8 --kv_quant` and `--ctc_decoding` on a hybrid model
+    directory over the same Kaldi
     directory: `label`, `decod` and `wer` written, the greedy hypotheses
     equal to `Transcriber.transcribe`'s; the phase's wall time;
 14. the bridge and adapter family (`full_width.FAMILY`), on the hybrid
@@ -186,7 +191,26 @@ Phases, one line each, any failure exits non-zero:
     (the tokens too; every lazy row loaded natively);
     (d) `profiling.trace` around a short stream names its three regions,
     and `device_memory_stats()` reads non-zero. Every reading is printed
-    before any is gated.
+    before any is gated;
+18. LLaMA-3.1-8B (`full_width.build_8b`: WavLM-Large + 32 layers of
+    hidden 4096, 32 q / 8 kv heads of 128, llama3 rope, an untied head of
+    128264), every earlier model freed first, each leg with the launch
+    counts set to 0 just before each run and read just after: (int8) the
+    w8a8 decoder initialised directly in int8 (`init_quantized_llama`), its
+    init seconds and peak device memory within INIT_PEAK_TOL of its
+    footprint, two `transcribe` calls of 8 padded 6-10 s waveforms at 150
+    new tokens with an int8 KV cache (#1, #2, #6 exactly as
+    `expected_counts` at 32 layers), the RTFx and the wall a decode step,
+    the decoder's logits kernels vs plain (prefill and GATE_STEPS steps)
+    within LOGITS_TOL_INT8_8B beside its yardstick (#6 against its plain
+    version on every call, and the logits with #6 at layer 0 alone), the
+    short prefill (#7 held against its plain version on its served
+    inputs, then the logits), #6 at the served decode shape against its
+    plain version; (bf16) `init_random`'s bf16 model,
+    one call (#1, #2, #4), the whole model's logits within LOGITS_TOL, the
+    short prefill (#5), #4 at the served shape; the phase's wall time.
+    At 32 layers the w8a8 roundings amplify a sound kernel's last-bit
+    differences, so the int8 legs have their own logits gate.
 
 Every kernel's record carries its error, its time, its plain version's
 time, the least time the card could take (`bound_ms`, from the bytes the
@@ -206,6 +230,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -224,10 +249,17 @@ MAX_NEW = 150
 SEED = 0
 GATE_STEPS = 8        # decode steps whose logits are held kernels vs plain
 LOGITS_TOL = 0.05     # rel-L2 of bf16 logits, kernels vs plain versions
-# the same, int8 leg, the decoder's kernels alone: sound kernels read 0
-# (the w8a8 activation rounding absorbs their last-bit differences), #6 or
-# #7 ignoring its mask 0.146 and 1.08 at the worst step
+# the same, int8 leg, the decoder's kernels alone: sound kernels read
+# 0-0.0142 (a last-bit difference that flips a w8a8 activation rounding
+# carries to the logits), #6 or #7 ignoring its mask 0.146 and 1.08 at the
+# worst step
 LOGITS_TOL_INT8 = 0.02
+# the same at LLaMA-3.1-8B (phase 18): there one bf16 ulp of one element of
+# a sound #6's output at layer 0 (the kernel's own tolerance) flips w8a8
+# roundings through 31 more layers and reads 0.035 alone; sound kernels
+# read 0-0.050 (long request) and 0.024-0.085 (short prefill), #6 or #7
+# ignoring its mask 0.389-0.495 and 1.068-1.259 (PERF.md, Findings)
+LOGITS_TOL_INT8_8B = 0.2
 # the same, bf16, the decoder's kernels alone (phase 14, leg A: the CTC
 # prompt's argmax ids flip with the encoder's rounding, so the whole-model
 # gate reads the decoder on other inputs): sound kernels read 0-0.0091, #4
@@ -704,12 +736,13 @@ def expected_counts(cfg, steps, short: bool, int8: bool):
 
 
 def serve_phase(torch, card: str, cfg, transcriber, requests, tag: str,
-                short: bool = False, captured=None):
+                short: bool = False, captured=None, timing=None):
     """`transcriber.transcribe` on each request, with the launch counts set
     to 0 just before and read just after; fails unless each kernel of the
     path launched exactly as often as the path needs. With `captured` (a
-    list), every chunk-kernel call appends (name, copies of its inputs).
-    Returns (counts, RTFx over the calls after the first)."""
+    list), every chunk-kernel call appends (name, copies of its inputs);
+    `timing` (a dict) receives each call's wall, audio seconds and decode
+    steps. Returns (counts, RTFx over the calls after the first)."""
     from unittest import mock
 
     import mtasr_tpu_torch.api as api_mod
@@ -749,6 +782,8 @@ def serve_phase(torch, card: str, cfg, transcriber, requests, tag: str,
                                               for t in texts):
                 fail(f"{tag}: transcribe returned a malformed result")
     counts = kernels.launch_counts()
+    if timing is not None:
+        timing.update(walls=walls, audio=audio_s, steps=steps)
     expect = expected_counts(cfg, steps, short,
                              transcriber.gen.kv_quant)
     say(f"serve[{tag}]: {len(requests)} requests x {BATCH} waveforms, walls "
@@ -880,14 +915,15 @@ def step_logits(torch, cfg, model, gen, wav, amask, tokens=None,
 
 
 def logits_phase(torch, cfg, model, transcriber, wavs, tag: str,
-                 decoder_too: bool = False) -> None:
+                 decoder_too: bool = False,
+                 int8_tol: float = LOGITS_TOL_INT8) -> None:
     """The model with kernels against the model with the plain versions:
     rel-L2 of the logits at the prefill and at each of the first GATE_STEPS
     decode steps, each within the gate. bf16: the whole model, within
     LOGITS_TOL, and with decoder_too also the decoder's kernels alone,
     within LOGITS_TOL_DECODER. int8: the decoder's kernels alone (both
     sides run the encoder's kernels, so its bf16 differences, which w8a8
-    amplifies, do not enter), within LOGITS_TOL_INT8. Every reading is
+    amplifies, do not enter), within `int8_tol`. Every reading is
     printed before any is gated. Fails unless the kernel run launched the
     leg's decode kernel and each plain run none of the kernels it
     replaced."""
@@ -903,7 +939,7 @@ def logits_phase(torch, cfg, model, transcriber, wavs, tag: str,
             or not bool(torch.isfinite(lk).all()):
         fail(f"{tag}: the kernel run took the wrong route (launches {n0} -> "
              f"{n1}) or gave {tuple(lk.shape)} logits or non-finite values")
-    legs = [(True, LOGITS_TOL_INT8)] if int8 else [(False, LOGITS_TOL)]
+    legs = [(True, int8_tol)] if int8 else [(False, LOGITS_TOL)]
     if decoder_too and not int8:
         legs.append((True, LOGITS_TOL_DECODER))
     over = []
@@ -949,7 +985,8 @@ def short_transcriber(transcriber):
 
 
 def short_prefill_phase(torch, card: str, cfg, transcriber, records,
-                        launches, leg: str) -> None:
+                        launches, leg: str,
+                        int8_tol: float = LOGITS_TOL_INT8) -> None:
     """A request of short waveforms in a 1 s bucket: its prefill of 8
     positions runs the chunk kernel of the leg (#5 or #7) once a decoder
     layer. The launches are counted; the kernel is then held against its
@@ -965,7 +1002,7 @@ def short_prefill_phase(torch, card: str, cfg, transcriber, records,
         launches[name] += n
     captured_phase(torch, card, records, captured)
     logits_phase(torch, cfg, transcriber.model, tr, wavs[0],
-                 f"{leg} short prefill")
+                 f"{leg} short prefill", int8_tol=int8_tol)
     torch.cuda.synchronize()
 
 
@@ -1726,6 +1763,7 @@ def model_dirs_phase(torch, card: str, launches) -> None:
     from mtasr_tpu_torch.cli import finetune_asr, inference_asr
     from mtasr_tpu_torch.ops import kernels
     from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.train import checkpoint as ckpt_mod
     from mtasr_tpu_torch.train import loop as loop_mod
     from mtasr_tpu_torch.utils import model_io
     from mtasr_tpu_torch.utils.quantize import quantize_for_serving
@@ -1882,11 +1920,16 @@ def model_dirs_phase(torch, card: str, launches) -> None:
     real_save = loop_mod.save_checkpoint
 
     def timed_save(*a, **kw):
+        """The save's return (the host copy; the step waits this long) and
+        its commit (`wait_for_pending_saves`), both from the call."""
         t0 = synced(torch)
         path = real_save(*a, **kw)
-        dt = time.perf_counter() - t0
+        t_ret = time.perf_counter() - t0
+        ckpt_mod.wait_for_pending_saves()
+        t_commit = time.perf_counter() - t0
         saves.append((sum(os.path.getsize(os.path.join(dp, f))
-                          for dp, _, fs in os.walk(path) for f in fs), dt))
+                          for dp, _, fs in os.walk(path) for f in fs),
+                      t_ret, t_commit))
         return path
 
     def finetune(exp, steps):
@@ -1941,13 +1984,15 @@ def model_dirs_phase(torch, card: str, launches) -> None:
     frozen = all(torch.equal(a[k], b[k]) for k in a if k not in names)
     nondet = sorted({str(w.message)[:100] for w in caught
                      if "deterministic" in str(w.message)})
-    size, dt_ck = saves[-1]
+    size, dt_ret, dt_ck = saves[-1]
     say(f"model dirs 4: finetune_asr --use_lora --freeze_decoder B="
         f"{FT_BATCH} on 8 x {AUDIO_S} s: {FT_STEPS} steps straight, "
         f"{FT_SAVE} then resumed to {FT_STEPS}, walls "
         f"{[round(w, 2) for w in walls]} s; last losses {losses}; a "
         f"checkpoint {gbps(size, dt_ck)} (parameters, AdamW moments, trainer "
-        f"state); resumed vs straight over {len(names)} trainable tensors: "
+        f"state; written in the background: save_checkpoint returned after "
+        f"{dt_ret:.3f} s, the write committed after {dt_ck:.3f} s); resumed "
+        f"vs straight over {len(names)} trainable tensors: "
         f"rel_l2 {rel:.6g}, {n_equal} bit-equal, moments bit-equal "
         f"{moments}, frozen tensors equal {frozen}; ops without a "
         f"deterministic implementation {nondet} [{card}]")
@@ -3256,6 +3301,138 @@ def pipelined_phase(torch, card: str, launches) -> None:
         fail("pipelined: " + "; ".join(bad))
 
 
+EIGHT_B_SEED = SEED + 18   # phase 18's waveforms
+INIT_PEAK_TOL = 0.05       # the direct int8 init's peak over its footprint
+
+
+def int8_yardstick(torch, cfg, model, tr, wavs) -> None:
+    """What the int8 logits gate reads at 32 layers, printed: #6 against
+    its plain version on every call of a kernel run (prefill and
+    GATE_STEPS steps), and the logits of a plain run with #6 at layer 0
+    alone, teacher-forced, against the plain run: a sound kernel's
+    last-bit differences at one layer through the w8a8 layers after it."""
+    from unittest import mock
+
+    import mtasr_tpu_torch.models.llama as llama_mod
+    from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
+    wav, amask = one_batch(torch, tr, wavs)
+    kernel, plain = di.decode_attention_int8, di.decode_attention_int8_plain
+    calls = []
+
+    def checked(*a):
+        out, ref = kernel(*a), plain(*a)
+        calls.append(float((out.float() - ref.float()).abs().max() /
+                           ulps_tol(ref.float(), 1)))
+        return out
+    with mock.patch.object(llama_mod, "decode_attention_int8", checked):
+        _, toks = step_logits(torch, cfg, model, tr.gen, wav, amask)
+    lp, _ = step_logits(torch, cfg, model, tr.gen, wav, amask, tokens=toks,
+                        plain=True, decoder_only=True)
+    n = {"i": 0}
+
+    def layer0(*a):
+        n["i"] += 1
+        return (kernel if n["i"] % cfg.decoder.num_hidden_layers == 1
+                else plain)(*a)
+    with plain_versions(True, decoder_only=True), \
+            mock.patch.object(llama_mod, "decode_attention_int8", layer0):
+        lo, _ = step_logits(torch, cfg, model, tr.gen, wav, amask,
+                            tokens=toks)
+    rel = [round(float((lo[t] - lp[t]).norm() / lp[t].norm()), 5)
+           for t in range(lp.shape[0])]
+    say(f"8b[int8]: #6 against its plain version on the {len(calls)} calls "
+        f"of a kernel run: {sum(c > 0 for c in calls)} differ, by at most "
+        f"{max(calls):.3g} bf16 ulp; #6 at layer 0 alone, plain elsewhere: "
+        f"logits rel_l2 at prefill and decode steps 1-{GATE_STEPS} {rel}")
+
+
+def eight_b_leg(torch, card: str, launches, records, quantize, requests
+                ) -> None:
+    """One leg of phase 18: `full_width.build_8b` on the card (the init
+    seconds, its peak device memory against its footprint), then
+    `transcribe` of `requests` with the exact launch counts, the RTFx and
+    the wall a decode step (a call's wall over its steps, the encode and
+    prefill included), the logits kernels vs plain (int8: the decoder's
+    kernels alone within LOGITS_TOL_INT8_8B; bf16: the whole model within
+    LOGITS_TOL), the short prefill (#7 or #5, held against its plain
+    version on its served inputs) and #4 or #6 at the served decode shape
+    against its plain version."""
+    from mtasr_tpu_torch.generate import engine
+    from mtasr_tpu_torch.tools import full_width
+    int8 = quantize is not None
+    leg = "int8" if int8 else "bf16"
+    gib = 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = synced(torch)
+    cfg, model, tr = full_width.build_8b(SEED, "cuda", quantize=quantize,
+                                         kv_quant=int8)
+    init_s = synced(torch) - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    final = torch.cuda.memory_allocated() - base
+    dec = cfg.decoder
+    say(f"8b[{leg}]: WavLM-Large + LLaMA-3.1-8B ({dec.num_hidden_layers} "
+        f"layers, head dim {dec.head_dim_}, untied head of "
+        f"{dec.vocab_size}), "
+        + ("w8a8 decoder initialised directly in int8, int8 KV cache"
+           if int8 else "bf16") +
+        f": init {init_s:.2f} s, max_memory_allocated {peak / gib:.3f} GiB "
+        f"against the final footprint {final / gib:.3f} GiB [{card}]")
+    if int8 and peak > (1 + INIT_PEAK_TOL) * final:
+        fail(f"8b: the direct int8 init peaked at {peak} bytes, over "
+             f"{1 + INIT_PEAK_TOL} x its footprint {final}")
+    timing = {}
+    counts, rtfx = serve_phase(torch, card, cfg, tr, requests, f"8b {leg}",
+                               timing=timing)
+    for name, n in counts.items():
+        launches[name] += n
+    per_step = [1000 * w / max(n, 1)
+                for w, n in zip(timing["walls"], timing["steps"])]
+    say(f"8b[{leg}]: RTFx {rtfx:.2f}, wall a decode step "
+        f"{[round(x, 3) for x in per_step]} ms (a call's wall over its "
+        f"steps); max_memory_allocated while serving "
+        f"{torch.cuda.max_memory_allocated() / gib:.3f} GiB, allocated at "
+        f"the end {torch.cuda.memory_allocated() / gib:.3f} GiB B={BATCH} "
+        f"[{card}]")
+    logits_phase(torch, cfg, model, tr, requests[-1], f"8b {leg}",
+                 int8_tol=LOGITS_TOL_INT8_8B)
+    if int8:
+        int8_yardstick(torch, cfg, model, tr, requests[-1])
+    torch.cuda.synchronize()
+    short_prefill_phase(torch, card, cfg, tr, records, launches, f"8b {leg}",
+                        int8_tol=LOGITS_TOL_INT8_8B)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(EIGHT_B_SEED)
+    ids, _ = engine.prompt_layout(cfg, BATCH, None, "cpu")
+    S = ids.shape[1] + cfg.encoder.adapter_output_length(
+        cfg.encoder.conv_output_length(SR * AUDIO_S)) + MAX_NEW
+    decode_at_batch(torch, card, BATCH, dec.num_attention_heads,
+                    dec.num_key_value_heads, S, dec.head_dim_,
+                    lambda *sh: torch.randn(sh, generator=g, device="cuda",
+                                            dtype=torch.bfloat16))
+    del model, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def eight_b_phase(torch, card: str, launches, records) -> None:
+    """Phase 18: WavLM-Large + LLaMA-3.1-8B served at full width, int8
+    (w8a8 from the direct int8 init, int8 KV: #1, #2, #6, #7) then bf16
+    (#1, #2, #4, #5); every earlier model freed first."""
+    from mtasr_tpu_torch.tools import full_width
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"8b: device memory allocated at the start "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    requests = full_width.waveforms(EIGHT_B_SEED, 2, BATCH, (6.0, 10.0))
+    eight_b_leg(torch, card, launches, records, "w8a8", requests)
+    eight_b_leg(torch, card, launches, records, None, requests[:1])
+    say(f"8b: phase 18 wall {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--rank"]:
         rank_main(sys.argv[2:])      # one rank of phase 16
@@ -3307,6 +3484,13 @@ def main() -> None:
         say(f"pipelined: launches {launches} (phase 17 alone: no kernels "
             "record)")
         print(json.dumps({"ok": True, "only": "pipelined"}), flush=True)
+        return
+
+    if "--only-8b" in sys.argv[1:]:
+        launches = dict.fromkeys(kernels.WRAPPERS, 0)
+        eight_b_phase(torch, card, launches, {})
+        say(f"8b: launches {launches} (phase 18 alone: no kernels record)")
+        print(json.dumps({"ok": True, "only": "8b"}), flush=True)
         return
 
     if "--only-family" in sys.argv[1:]:
@@ -3427,6 +3611,9 @@ def main() -> None:
 
     # -- pipelined stream decoding, the native host helpers, tracing --------
     pipelined_phase(torch, card, launches)
+
+    # -- LLaMA-3.1-8B, int8 from the direct init and bf16 ---------------------
+    eight_b_phase(torch, card, launches, records)
 
     records = list(records.values())
     for r in records:

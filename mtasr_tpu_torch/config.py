@@ -7,8 +7,10 @@ two by name (`from_fields`) and through the same `config.json`
 its default. The `decoder_cross_attention_dynamic*` knobs are carried and,
 as in the JAX package, used by no model. The JAX package's
 backend selectors (`attention_impl`, `conv0_impl`, `conv_impl`,
-`gelu_impl`, `decode_attn_impl`, `scan_layers`) are carried for the round
-trip and select nothing: the port chooses by the tensor's device.
+`decode_attn_impl`, `scan_layers`) are carried for the round trip and
+select nothing: the port chooses by the tensor's device. `gelu_impl`
+selects WavLM's erf (`models/layers.py::resolve_act`): "fast" the JAX
+package's polynomial, "exact" and "auto" the exact erf.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ class WavLMConfig:
     attention_impl: str = "auto"
     scan_layers: bool = False
     conv_impl: str = "xla"
+    # the erf of gelu: "fast" the polynomial, "exact" / "auto" the exact erf
     gelu_impl: str = "auto"
     conv0_impl: str = "auto"
 

@@ -179,6 +179,52 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+# The JAX package's odd polynomial for erf on [-3.9, 3.9]
+# (`mtasr_tpu/models/layers.py:222-232`), the coefficients of x * P(x^2)
+# from the lowest power up; f32 max abs error 3.4e-4.
+_ERF_POLY = (1.126774549484253, -0.3686739504337311, 0.10251989960670471,
+             -0.020142648369073868, 0.0027008887846022844,
+             -0.00023893950856290758, 1.3233010577096138e-05,
+             -4.136108486818557e-07, 5.55044232797286e-09)
+
+
+def erf_approx(x: torch.Tensor) -> torch.Tensor:
+    """erf by the polynomial, f32 Horner in the JAX package's order
+    (`layers.py:235-242`): the argument clamped to [-3.9, 3.9]."""
+    u = x.clamp(-3.9, 3.9)
+    u2 = u * u
+    p = torch.full_like(u, _ERF_POLY[-1])
+    for c in _ERF_POLY[-2::-1]:
+        p = p * u2 + c
+    return u * p
+
+
+def fast_gelu(x: torch.Tensor) -> torch.Tensor:
+    """gelu's exact form on the polynomial erf, computed in float32 and
+    rounded once to x's dtype (`layers.py:245-250`)."""
+    xf = x.float()
+    y = 0.5 * xf * (1.0 + erf_approx(xf * 2.0 ** -0.5))
+    return y.to(x.dtype)
+
+
 # WavLM's activations by config name (`hidden_act`,
-# `feat_extract_activation`); the checkpoints of this model family use gelu.
-ACT = {"gelu": gelu}
+# `feat_extract_activation`), the JAX package's table (`layers.py:253-260`)
+ACT = {
+    "gelu": gelu,
+    "gelu_fast": fast_gelu,
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+    "tanh": torch.tanh,
+}
+
+
+def resolve_act(name: str, impl: str = "auto"):
+    """The activation `name`; for gelu, `impl` ("auto", "exact" or "fast":
+    the config's `gelu_impl`) selects the erf: "fast" the polynomial
+    (`fast_gelu`), the others the exact erf. The JAX package's "auto" takes
+    the polynomial on the TPU alone (`layers.py:263-272`); the port keeps
+    the exact erf on the card too (`csrc/conv_frontend.cu:11-13`)."""
+    if name == "gelu" and impl == "fast":
+        return fast_gelu
+    return ACT[name]

@@ -34,8 +34,8 @@ from torch import nn
 
 from mtasr_tpu_torch.config import WavLMConfig
 from mtasr_tpu_torch.models.layers import (
-    ACT, conv1d, dropout, gelu, group_norm, layer_norm, linear, remat_layer,
-    row_linear,
+    conv1d, dropout, gelu, group_norm, layer_norm, linear, remat_layer,
+    resolve_act, row_linear,
 )
 from mtasr_tpu_torch.ops.kernels.conv_frontend import conv0_fused
 from mtasr_tpu_torch.ops.kernels.flash_attention import (
@@ -235,12 +235,15 @@ def feature_vector_attention_mask(cfg: WavLMConfig, T: int,
 def feature_encoder(fe: _FeatureExtractor, cfg: WavLMConfig,
                     input_values: torch.Tensor) -> torch.Tensor:
     """[B, S] waveform -> [B, T, conv_dim[-1]] at 50 Hz. Layer 0 always runs
-    through `conv0_fused`, with the LayerNorm and gelu fused when the
-    config has them (WavLM-Large), else as a plain conv."""
-    act = ACT[cfg.feat_extract_activation]
+    through `conv0_fused`: with the LayerNorm and gelu fused when the config
+    has them with the exact erf (WavLM-Large), else the conv alone, the
+    norm and `cfg.feat_extract_activation` following here, as the JAX
+    package composes them after its kernel (`wavlm.py:213-220`)."""
+    act = resolve_act(cfg.feat_extract_activation, cfg.gelu_impl)
     lp = fe.conv_layers["0"]
     fuse = (cfg.feat_extract_norm == "layer"
-            and cfg.feat_extract_activation == "gelu")
+            and cfg.feat_extract_activation == "gelu"
+            and cfg.gelu_impl != "fast")
     x = conv0_fused(input_values, lp.conv.weight, lp.conv.bias,
                     lp.layer_norm.weight if fuse else None,
                     lp.layer_norm.bias if fuse else None,
@@ -317,7 +320,8 @@ def _feed_forward(ff: _FeedForward, cfg: WavLMConfig, x: torch.Tensor,
                   ) -> torch.Tensor:
     tp = getattr(ff, "tp", None)
     x = copy_to_tp(x, tp)
-    h = ACT[cfg.hidden_act](linear(ff.intermediate_dense, x))
+    act = resolve_act(cfg.hidden_act, cfg.gelu_impl)
+    h = act(linear(ff.intermediate_dense, x))
     h = dropout(h, cfg.activation_dropout, generator, deterministic)
     h = row_linear(ff.output_dense, h, tp)
     return dropout(h, cfg.hidden_dropout, generator, deterministic)

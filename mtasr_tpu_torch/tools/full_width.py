@@ -18,6 +18,12 @@ a batch shaped like the JAX bench's (`bench.py:108-131`): 10 s of noise a
 row, 24 label positions, two talkers split by <sc> (with `split_speakers`
 also as the per-talker CTC targets).
 
+`build_8b` serves WavLM-Large + LLaMA-3.1-8B (the composite of the JAX
+bench's 8B leg, `benchmarks/stream_8b.py:54-64`: attention mode, the same
+vocabulary): with `quantize="w8a8"` the decoder is built directly in int8
+serving form (`utils/quantize.py::init_quantized_llama`, about 8.6 GiB on
+the device with the encoder), with `quantize=None` in bf16 (16.7 GB).
+
 `family` (a key of `FAMILY`) switches on a configuration of the bridge and
 adapter family on the hybrid model (its separator and CTC heads):
 A the refiner, the CTC prompt and ctcaware adapters over CTC-token memory;
@@ -35,7 +41,7 @@ import torch
 from mtasr_tpu_torch.api import Transcriber
 from mtasr_tpu_torch.config import (
     GenerationConfig, SpeechEncoderDecoderConfig, llama_1b_config,
-    wavlm_large_config,
+    llama_8b_config, wavlm_large_config,
 )
 from mtasr_tpu_torch.data.pipeline import Batch
 from mtasr_tpu_torch.data.specaugment import compute_mask_indices
@@ -61,16 +67,18 @@ FAMILY = {
 }
 
 
-def config(hybrid: bool = False, family: Optional[str] = None, **encoder_kw
+def config(hybrid: bool = False, family: Optional[str] = None,
+           decoder=llama_1b_config, **encoder_kw
            ) -> Tuple[SpeechEncoderDecoderConfig, CharTokenizer]:
     """The full-width config (attention mode, or with `hybrid` the hybrid
     SOT+CTC recipe with 2 talkers' CTC heads; `family` implies it) and its
-    tokenizer."""
+    tokenizer; `decoder` builds the LLaMA geometry (LLaMA-3.2-1B's, or
+    `llama_8b_config`)."""
     hybrid = hybrid or family is not None
     tok = CharTokenizer()
     sp = tok.add_special_tokens(instruct=False)
-    dec = llama_1b_config(vocab_size=VOCAB_SIZE, bos_token_id=sp.bos_token_id,
-                          eos_token_id=sp.eos_token_id)
+    dec = decoder(vocab_size=VOCAB_SIZE, bos_token_id=sp.bos_token_id,
+                  eos_token_id=sp.eos_token_id)
     cfg = SpeechEncoderDecoderConfig(
         encoder=wavlm_large_config(**encoder_kw), decoder=dec,
         train_mode="hybrid" if hybrid else "attention", talker_ctc=hybrid,
@@ -99,9 +107,28 @@ def build(seed: int = 0, device="cuda",
     model = init_random(cfg, g, device, dtype)
     if quantize:
         quantize_for_serving(model, quantize)
-    return cfg, model, Transcriber(
-        cfg, model, tok,
-        gen=GenerationConfig(do_sample=False, kv_quant=kv_quant))
+    return cfg, model, _greedy(cfg, model, tok, kv_quant)
+
+
+def build_8b(seed: int = 0, device="cuda", quantize: Optional[str] = "w8a8",
+             kv_quant: bool = True
+             ) -> Tuple[SpeechEncoderDecoderConfig, torch.nn.Module,
+                        Transcriber]:
+    """(config, model, greedy Transcriber) of WavLM-Large + LLaMA-3.1-8B
+    with weights from `seed`, bf16: with `quantize` ("w8" / "w8a8") the
+    decoder initialised directly in int8 serving form, never in bf16;
+    `kv_quant` gives the Transcriber an int8 KV cache."""
+    cfg, tok = config(decoder=llama_8b_config, mask_time_prob=0.0)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    model = init_random(cfg, g, device, torch.bfloat16, quantize=quantize)
+    return cfg, model, _greedy(cfg, model, tok, kv_quant)
+
+
+def _greedy(cfg, model, tok, kv_quant: bool) -> Transcriber:
+    return Transcriber(cfg, model, tok,
+                       gen=GenerationConfig(do_sample=False,
+                                            kv_quant=kv_quant))
 
 
 def build_train(seed: int = 0, device="cuda",

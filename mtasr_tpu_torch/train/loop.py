@@ -6,7 +6,8 @@ As in the JAX trainer, every step's randomness is a function of (seed,
 step): its dropout comes from a fresh `torch.Generator` seeded from both,
 and the position in the data stream (epoch, batch in epoch) is kept in
 the state. `save` writes `output_dir/checkpoint-<step>` (`train/checkpoint.py`:
-the parameters, AdamW's state, the trainer state) every `save_steps` and at
+the parameters, AdamW's state, the trainer state; written in the background,
+the last write drained before `train` returns) every `save_steps` and at
 the end; `maybe_resume` restores the newest, and `train` then re-enters the
 interrupted epoch and skips the batches it had consumed, so a resumed run
 sees the data an uninterrupted one does. With eval batches, the best
@@ -45,6 +46,7 @@ from mtasr_tpu_torch.parallel import multihost
 from mtasr_tpu_torch.parallel.mesh import shard_batch, shard_model
 from mtasr_tpu_torch.train.checkpoint import (
     last_checkpoint, restore_checkpoint, save_checkpoint,
+    wait_for_pending_saves,
 )
 from mtasr_tpu_torch.train.freeze import (
     apply_trainable_mask, freeze_summary, trainable_mask,
@@ -275,6 +277,9 @@ class Trainer:
                 break
         self.save()
         self._maybe_load_best()
+        # the last write commits before control returns (an exit with a
+        # write in flight would cut it short); its failure is raised here
+        wait_for_pending_saves()
         return self.state
 
     def evaluate(self, batches: Iterable[Batch],

@@ -26,11 +26,11 @@ allocated twice.
 
 `init_random` builds a model at full width with random weights from a
 `torch.Generator`, straight on the target device, for runs that have no
-checkpoint.
+checkpoint; its decoder optionally in int8 serving form from the start.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -44,6 +44,7 @@ from mtasr_tpu_torch.models.speech_encoder_decoder import (
 )
 from mtasr_tpu_torch.models.wavlm import WavLM, pos_conv_module
 from mtasr_tpu_torch.train.lora import DecoderLoRA, LoRAPair
+from mtasr_tpu_torch.utils.quantize import init_quantized_llama
 from mtasr_tpu_torch.utils.safetensors_io import convert_state_dict
 
 
@@ -139,7 +140,8 @@ def load_flat(model: torch.nn.Module, flat: Mapping[str, object], *,
 
 
 def init_random(cfg: SpeechEncoderDecoderConfig, generator: torch.Generator,
-                device, dtype: torch.dtype) -> SpeechEncoderDecoderModel:
+                device, dtype: torch.dtype, quantize: Optional[str] = None
+                ) -> SpeechEncoderDecoderModel:
     """A model with random weights, allocated on `device` in `dtype` (no
     float32 copy on the host). Matrices ~ N(0, 1/fan_in), embeddings
     ~ N(0, 0.02^2), biases ~ N(0, 0.02^2), norm scales and the rel-pos gate
@@ -148,9 +150,13 @@ def init_random(cfg: SpeechEncoderDecoderConfig, generator: torch.Generator,
     symmetry-breaking bias offsets), the cross-attention adapters the JAX
     init's scalars, rank gates and zero LoRA B factors
     (`models/adapters.py::init_scalars`). `generator` must live on
-    `device`."""
+    `device`. With `quantize` ("w8" / "w8a8") the decoder is built
+    directly in int8 serving form (`utils/quantize.py::init_quantized_llama`:
+    the device never holds its float weights)."""
     with torch.device("meta"):
         model = SpeechEncoderDecoderModel(cfg)
+    if quantize:
+        model.decoder = torch.nn.Module()   # keeps the submodules' order
     model = model.to(dtype=dtype).to_empty(device=device)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -169,4 +175,7 @@ def init_random(cfg: SpeechEncoderDecoderConfig, generator: torch.Generator,
         init_separator(model.separator, generator)
     for ad in getattr(model, "cross_att_adap", {}).values():
         init_scalars(ad, cfg.r_max, cfg.lora_alpha)
+    if quantize:
+        model.decoder = init_quantized_llama(cfg.decoder, generator, device,
+                                             quantize)
     return model.eval()

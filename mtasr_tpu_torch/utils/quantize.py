@@ -11,7 +11,9 @@ holding `weight_q8a8` (w8a8: int8 activations too) or `weight_q8` (w8:
 weight only), `scale` and the bias, under the JAX tree's keys, so a
 quantized JAX tree loads into a quantized port model by name
 (`utils/convert.py::load_flat`). `models/layers.py::linear` dispatches on
-the container.
+the container. `init_quantized_llama` builds a random decoder in that form
+directly, for a geometry whose float weights would not fit beside their
+int8 copy.
 """
 from __future__ import annotations
 
@@ -21,10 +23,15 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from mtasr_tpu_torch.config import LlamaConfig
 from mtasr_tpu_torch.models.layers import QuantLinear
+from mtasr_tpu_torch.models.llama import Llama
 from mtasr_tpu_torch.ops.int8 import INV127
 
 MIN_OUT_DIM = 256   # narrower linears stay in their float type
+# uniform int8 in [-127, 127] has std 73.3: this scale dequantizes it to a
+# std of 0.02 (`mtasr_tpu/utils/quantize.py:172-173`, the same constant)
+INIT_SCALE = 0.02 / 73.3
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -132,3 +139,39 @@ def quantize_for_serving(model: nn.Module, mode: str = "w8",
     if scope == "all":
         quantize_encoder_for_serving(model, mode)
     return model
+
+
+@torch.no_grad()
+def init_quantized_llama(cfg: LlamaConfig, generator: torch.Generator,
+                         device, mode: str = "w8a8") -> Llama:
+    """A LLaMA decoder with random weights built directly in int8 serving
+    form (`mtasr_tpu/utils/quantize.py::init_quantized_llama_params`): the
+    layers' q/k/v/o and MLP projections and an `lm_head` (tied or not) are
+    `QuantLinear`s whose int8 weights are drawn uniform in [-127, 127]
+    from `generator` (on `device`) straight into their buffers, with every
+    scale INIT_SCALE; the embedding (N(0, 0.02^2)) and the norms (1) are
+    bf16. No float copy of a quantized weight is ever allocated, so the
+    device holds the final footprint and no more. The keys, shapes and
+    dtypes are `quantize_decoder_for_serving`'s on a decoder whose linears
+    are all MIN_OUT_DIM wide or wider; like the JAX function, no linear
+    gets a bias."""
+    if mode not in ("w8", "w8a8"):
+        raise ValueError(f"quantize mode {mode!r} not in w8 / w8a8")
+    with torch.device("meta"):
+        dec = Llama(cfg).to(torch.bfloat16)
+        for layer in dec.model.layers.values():
+            for parent in (layer.self_attn, layer.mlp):
+                for name, lin in list(parent.named_children()):
+                    setattr(parent, name, QuantLinear(
+                        lin.in_features, lin.out_features, mode))
+        dec.lm_head = QuantLinear(cfg.hidden_size, cfg.vocab_size, mode)
+    dec = dec.to_empty(device=device)
+    for m in dec.modules():
+        if isinstance(m, QuantLinear):
+            m.weight_int8.random_(-127, 128, generator=generator)
+            m.scale.fill_(INIT_SCALE)
+    dec.model.embed_tokens.weight.normal_(0.0, 0.02, generator=generator)
+    for p in dec.parameters():
+        if p.dim() == 1:
+            p.fill_(1.0)
+    return dec.eval()

@@ -233,6 +233,14 @@ class Calculator:
                 f"D={t.dele} I={t.ins}")
 
 
+def wer(lab_text: str, rec_text: str, char_mode: bool = False,
+        case_sensitive: bool = False) -> float:
+    """The WER (%) of one hypothesis against its reference
+    (`mtasr_tpu/utils/wer.py::wer`)."""
+    return Calculator(char_mode, case_sensitive).calculate(
+        "utt", lab_text, rec_text).wer
+
+
 def cpwer(ref_streams: Sequence[str], hyp_streams: Sequence[str],
           char_mode: bool = False, case_sensitive: bool = False
           ) -> Tuple[float, Tuple[int, ...]]:

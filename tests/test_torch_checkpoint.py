@@ -12,6 +12,7 @@ runs these tests 50-150x slower when the suite's workers share the
 cores);
 `load_partial` equals the JAX package's on flat trees, bit for bit."""
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -190,6 +191,83 @@ def test_best_model_survives_rotation_and_is_loaded_at_the_end(tmp_path):
     saved = model_io.read_flat(ckpt.last_checkpoint(str(tmp_path / "best")))
     for k, v in t.model.state_dict().items():
         assert torch.equal(v, saved[k]), k
+
+
+@pytest.fixture
+def held_writes(monkeypatch):
+    """The background writer held at its start until the test releases it
+    (`release.set()`): a save's write is then surely in flight."""
+    release = threading.Event()
+    real = ckpt.save_model
+
+    def held(*a, **kw):
+        assert release.wait(30), "the test never released the write"
+        return real(*a, **kw)
+    monkeypatch.setattr(ckpt, "save_model", held)
+    yield release
+    release.set()
+    ckpt.wait_for_pending_saves()
+
+
+def test_background_save_stores_the_state_of_its_call(tmp_path,
+                                                      held_writes):
+    """Parameters and moments changed in place after `save_checkpoint`
+    returned (the port's AdamW does so) are not in the checkpoint;
+    `last_checkpoint` right after a save sees its step; retention with a
+    write in flight keeps that step."""
+    cfg = _cfg(False)
+    t = _trainer(cfg, tmp_path, False, save_total_limit=1)
+    t.state.step = 1
+    held_writes.set()
+    t.save()
+    held_writes.clear()
+    before = {k: v.clone() for k, v in t.model.state_dict().items()}
+    mu = {k: v.clone() for k, v in t.optimizer.state_dict()["mu"].items()}
+    t.state.step = 2
+    path = t.save()
+    assert not os.path.exists(path)              # the write is held
+    with torch.no_grad():
+        for p in t.model.parameters():
+            p.add_(1.0)
+        for m in t.optimizer.mu:
+            m.add_(1.0)
+    held_writes.set()
+    assert ckpt.last_checkpoint(str(tmp_path)) == path
+    assert ckpt.list_checkpoints(str(tmp_path)) == [2]   # 1 rotated out
+    saved = model_io.read_flat(path)
+    for k, v in before.items():
+        assert torch.equal(saved[k], v), k
+    opt = model_io.read_flat(os.path.join(path, "optimizer"))
+    for k, v in mu.items():
+        assert torch.equal(opt[f"mu.{k}"], v), k
+    held_writes.clear()
+    t.state.step = 3
+    t.save()
+    threading.Timer(0.2, held_writes.set).start()
+    ckpt.apply_retention(str(tmp_path), 1)       # step 3 still held here
+    assert ckpt.list_checkpoints(str(tmp_path)) == [3]
+
+
+def test_a_failed_background_write_is_raised(tmp_path, monkeypatch):
+    """An exception in the writer comes out of the next drain, once, and
+    the failed step is never listed; a blocking save raises it itself."""
+    def broken(*a, **kw):
+        raise OSError("disk gone")
+    monkeypatch.setattr(ckpt, "save_model", broken)
+    t = _trainer(_cfg(False), tmp_path, False)
+    t.state.step = 1
+    t.save()
+    with pytest.raises(RuntimeError, match="background") as info:
+        ckpt.wait_for_pending_saves()
+    assert isinstance(info.value.__cause__, OSError)
+    assert ckpt.list_checkpoints(str(tmp_path)) == []
+    t.save()
+    with pytest.raises(RuntimeError):
+        ckpt.last_checkpoint(str(tmp_path))
+    with pytest.raises(RuntimeError, match="background"):
+        ckpt.save_checkpoint(str(tmp_path), 2, t.cfg, t.model,
+                             blocking=True)
+    ckpt.wait_for_pending_saves()               # raised once: nothing left
 
 
 def _flat_trees(rng, v_dst, v_src):

@@ -1511,3 +1511,85 @@ def test_native_loader_builds_and_loads_on_the_card_machine(gen, tmp_path):
     assert batch.arrays["audio_mask"].sum(1).tolist() == [16000, 12000,
                                                           16000]
     assert native.wer_align_native([1, 2, 3], [1, 3]) == (3, 2, 0, 1, 0)
+
+
+def _peak_and_footprint(build):
+    """(peak, final) device bytes allocated while `build()` runs."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build()
+    torch.cuda.synchronize()
+    out = (torch.cuda.max_memory_allocated() - base,
+           torch.cuda.memory_allocated() - base)
+    del model
+    return out
+
+
+def test_direct_int8_init_peak_memory_at_8b(gen):
+    """WavLM-Large + LLaMA-3.1-8B with the decoder initialised directly in
+    int8 (`init_random(quantize="w8a8")`): the peak stays within 5 % of the
+    final footprint (about 8.6 GiB), where `init_random` in bf16 followed by
+    `quantize_for_serving` peaks at about twice its footprint, the same."""
+    from mtasr_tpu_torch.config import llama_8b_config
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.utils.convert import init_random
+    from mtasr_tpu_torch.utils.quantize import quantize_for_serving
+    cfg, _ = full_width.config(decoder=llama_8b_config, mask_time_prob=0.0)
+    direct = _peak_and_footprint(lambda: init_random(
+        cfg, gen, "cuda", torch.bfloat16, quantize="w8a8"))
+    two_step = _peak_and_footprint(lambda: quantize_for_serving(
+        init_random(cfg, gen, "cuda", torch.bfloat16), "w8a8"))
+    print(f"direct int8 init: peak {direct[0]} final {direct[1]}; bf16 then "
+          f"quantize: peak {two_step[0]} final {two_step[1]}")
+    assert direct[0] <= 1.05 * direct[1]
+    assert direct[1] == two_step[1]
+    assert two_step[0] >= 1.5 * two_step[1]
+
+
+@torch.inference_mode()
+def test_wavlm_large_other_activations_take_the_conv_only_kernel(gen):
+    """WavLM-Large (2 layers) with hidden_act gelu_new and
+    feat_extract_activation relu: #1 runs once an encode, conv only (its
+    LayerNorm and gelu off), the norm and relu after it; the encode with
+    kernels against the plain route within a bf16 rel-L2 of 0.01 at the
+    features (one bf16 rounding of the same conv) and 0.02 at the output
+    (#2 against its plain version too)."""
+    from unittest import mock
+
+    from mtasr_tpu_torch.models import wavlm as wavlm_mod
+    from mtasr_tpu_torch.ops import kernels
+    from mtasr_tpu_torch.ops.kernels import conv_frontend as cf
+    from mtasr_tpu_torch.ops.kernels import flash_attention as fa
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.utils.convert import init_random
+    cfg, _ = full_width.config(num_hidden_layers=2, mask_time_prob=0.0,
+                               hidden_act="gelu_new",
+                               feat_extract_activation="relu")
+    model = init_random(cfg, gen, "cuda", torch.bfloat16).encoder
+    wav, amask = _wav_batch()
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append((kw["fuse_ln"], kw["fuse_act"]))
+        return cf.conv0_fused(*a, **kw)
+    kernels.reset_launch_counts()
+    with mock.patch.object(wavlm_mod, "conv0_fused", spy):
+        out = wavlm_mod.wavlm_forward(model, cfg.encoder, wav, amask)
+    counts = kernels.launch_counts()
+    with mock.patch.object(wavlm_mod, "conv0_fused", cf.conv0_plain), \
+            mock.patch.object(wavlm_mod, "flash_attention",
+                              fa.flash_attention_plain):
+        ref = wavlm_mod.wavlm_forward(model, cfg.encoder, wav, amask)
+    torch.cuda.synchronize()
+    assert seen == [(False, False)]
+    assert counts["conv0_fused"] == 1 and counts["flash_attention"] == 2
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+    feats = rel(out.extract_features, ref.extract_features)
+    last = rel(out.last_hidden_state, ref.last_hidden_state)
+    print(f"features rel-L2 {feats}, output rel-L2 {last}")
+    assert feats <= 0.01 and last <= 0.02

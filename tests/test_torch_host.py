@@ -297,7 +297,8 @@ def test_training_batches_match(instruct):
 
 def test_wer_calculator_matches():
     from mtasr_tpu.utils.wer import Calculator as JCalc
-    from mtasr_tpu_torch.utils.wer import Calculator
+    from mtasr_tpu.utils.wer import wer as jwer
+    from mtasr_tpu_torch.utils.wer import Calculator, wer
     rng = np.random.default_rng(5)
     words = ["a", "b", "<sc>", "C", "dd", "<unk>"]
     got, want = Calculator(), JCalc(use_native=False)
@@ -308,4 +309,6 @@ def test_wer_calculator_matches():
                                                                rec)
         assert (g.all, g.cor, g.sub, g.dele, g.ins) == \
             (w.all, w.cor, w.sub, w.dele, w.ins)
+        assert wer(lab, rec, char_mode=i % 2 == 1) == \
+            jwer(lab, rec, char_mode=i % 2 == 1)
     assert got.overall().wer == want.overall().wer

@@ -7,7 +7,8 @@ talker_ctc=True)`, dropouts 0 where the two are compared, the same
   `pit_ctc_loss`, `hybrid_loss` (ctc and hybrid); `model_forward`'s loss
   and aux;
 * `pcgrad_project` on random gradients with a negative dot;
-* train steps against the jitted JAX `make_train_step`, 2 steps each:
+* train steps against the jitted JAX `make_train_step`, 2 steps each (on
+  batches padded to one label shape: one compile a variant):
   PCGrad's three-stage split with freeze_decoder + LoRA, the PIT branch,
   PCGrad off; loss, loss_attn, loss_ctc, grad_norm, ctc_head_grad_norms and
   every parameter (the encoder adapter, which no head reads, moves by its
@@ -72,7 +73,7 @@ from mtasr_tpu_torch.train.train_step import (
     make_eval_step, make_train_step, pcgrad_project,
 )
 from mtasr_tpu_torch.utils.convert import load_flat
-from tests.test_composite import make_batch, tiny_cfg
+from tests.test_composite import PAD, make_batch, tiny_cfg
 
 # one intra-op thread: the suite's workers share the cores
 torch.set_num_threads(1)
@@ -126,6 +127,25 @@ def _batch(cfg, B=2, seed=2):
     return {"input_values": wav, "audio_mask": amask, "mask_time_indices": mti,
             **{k: arr[k] for k in ("decoder_input_ids", "ce_labels",
                                    "label_spks", "label_spk_lens")}}
+
+
+def _same_shape(batches):
+    """The batches with their label arrays padded to one shape (decoder ids
+    and speaker labels with <pad>, ce_labels with -100: positions no loss
+    reads), so that the jitted JAX step compiles once for all of them."""
+    L = max(b["ce_labels"].shape[1] for b in batches)
+    Ls = max(b["label_spks"].shape[2] for b in batches)
+    out = []
+    for b in batches:
+        b = dict(b)
+        for key, width, value in (("decoder_input_ids", L, PAD),
+                                  ("ce_labels", L, -100),
+                                  ("label_spks", Ls, PAD)):
+            a = b[key]
+            widths = [(0, 0)] * (a.ndim - 1) + [(0, width - a.shape[-1])]
+            b[key] = np.pad(a, widths, constant_values=value)
+        out.append(b)
+    return out
 
 
 def _jb(batch):
@@ -297,8 +317,8 @@ def test_train_steps_match_jax(variant):
                 if n.startswith("encoder.adapter.") and mask[n]}
     jparams, jstate = params, jopt.init(params)
     kernels.reset_launch_counts()
-    for i in range(2):
-        batch = _batch(cfg, seed=10 + i)
+    for i, batch in enumerate(_same_shape([_batch(cfg, seed=10 + i)
+                                           for i in range(2)])):
         jparams, jstate, jm = jstep(jparams, jstate, _jb(batch),
                                     jax.random.key(i))
         m = step(model, _tb(batch), None)

@@ -12,8 +12,11 @@ that no kernel was launched (CPU tensors take the plain versions). No file
 of the port, and not `chip_smoke.py`, imports jax, the JAX package or
 `safetensors`, or builds from the repo-root `native/`, and `transformers`
 is imported only inside `HFTokenizer`. Every module of the JAX package has
-its counterpart in the port, but for the two named exceptions. Every port
-test file pins torch to one intra-op thread."""
+its counterpart in the port, but for the two named exceptions, and so has
+every public function and class, by name, by a named rename, or with the
+reason it is JAX's alone. Every port test file pins torch to one intra-op
+thread."""
+import ast
 import os
 import pathlib
 import re
@@ -240,6 +243,79 @@ def test_every_jax_module_has_a_port_counterpart():
     assert missing == []
     for k in NOT_PORTED:
         assert (jax_pkg / k).exists(), k
+
+
+# public names of JAX modules that the port's module of the same path does
+# not define: the port's name for the same function ...
+RENAMED = {
+    "ops/ctc.py::ctc_loss": "ops/kernels/ctc.py::ctc_loss",
+    "parallel/mesh.py::partition_spec_for_tree": "parallel/mesh.py::layout",
+    "parallel/mesh.py::shard_params": "parallel/mesh.py::shard_model",
+    "parallel/mesh.py::spec_for_path": "parallel/mesh.py::spec_for_name",
+    "train/optimizer.py::hf_decay_mask": "train/optimizer.py::is_no_decay",
+    "utils/native.py::get_audio_lib": "utils/native.py::get_lib",
+    "utils/quantize.py::init_quantized_llama_params":
+        "utils/quantize.py::init_quantized_llama",
+    "utils/wer.py::normalize_tokens": "utils/wer.py::_tokens",
+    "utils/wer.py::stripoff_tags": "utils/wer.py::_strip_tags",
+    "utils/wer.py::tokenize": "utils/wer.py::_tokens",
+}
+# ... or why the port has none (a pattern over "module::name")
+JAX_ONLY = {
+    r"models/\w+\.py::(init_\w+|\w+_init)":
+        "parameter-tree builders: the port's nn.Modules construct their "
+        "parameters, utils/convert.py::init_random draws them",
+    r"models/layers\.py::tree_cast": "a pytree cast: nn.Module.to(dtype)",
+    r"parallel/mesh\.py::batch_sharding": "a jax NamedSharding; the port's "
+                                          "ranks take their rows "
+                                          "(parallel/mesh.py::shard_batch)",
+    r"ops/attention\.py::make_causal_mask": "called by nothing in the JAX "
+                                            "package; the port's decoder "
+                                            "builds its mask in place",
+}
+
+
+def _public_names(path: pathlib.Path):
+    """The module's top-level functions, classes and assigned names (all
+    of them), and its public functions and classes."""
+    tree = ast.parse(path.read_text())
+    defined, public = set(), set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            defined.add(node.name)
+            if not node.name.startswith("_"):
+                public.add(node.name)
+        elif isinstance(node, ast.Assign):
+            defined.update(t.id for t in node.targets
+                           if isinstance(t, ast.Name))
+    return defined, public
+
+
+def test_every_public_jax_name_has_a_port_counterpart():
+    """Every public function and class of a ported JAX module is defined
+    under its name in the port's module of the same path, or RENAMED names
+    its counterpart, or JAX_ONLY says why there is none. No entry of
+    either is stale."""
+    jax_pkg, port = ROOT / "mtasr_tpu", ROOT / "mtasr_tpu_torch"
+    missing, used = [], set()
+    for f in sorted(jax_pkg.rglob("*.py")):
+        rel = f.relative_to(jax_pkg).as_posix()
+        if any(rel == k or rel.startswith(k + "/") for k in NOT_PORTED):
+            continue
+        have, _ = _public_names(port / rel)
+        for name in sorted(_public_names(f)[1] - have):
+            key = f"{rel}::{name}"
+            why = [p for p in JAX_ONLY if re.fullmatch(p, key)]
+            if key in RENAMED:
+                mod, new = RENAMED[key].split("::")
+                assert new in _public_names(port / mod)[0], RENAMED[key]
+                used.add(key)
+            elif why:
+                used.update(why)
+            else:
+                missing.append(key)
+    assert missing == []
+    assert used == set(RENAMED) | set(JAX_ONLY)
 
 
 def test_transformers_is_imported_only_inside_hftokenizer():
