@@ -3130,8 +3130,9 @@ def stream_leg(torch, card: str, launches, cfg, model, tr, quant: bool,
             stream(batches[:2], 4)
         files = glob.glob(os.path.join(logdir, "*.json"))
         text = open(files[0]).read() if len(files) == 1 else ""
-        regions = [r for r in ("pipelined/frontend", "pipelined/stage",
-                               "pipelined/post_encode") if r in text]
+        regions = [r for r in ("mtasr.pipelined.frontend",
+                               "mtasr.pipelined.stage",
+                               "mtasr.pipelined.post_encode") if r in text]
         mem = profiling.device_memory_stats()
         say(f"pipelined 17d: profiling.trace wrote {len(files)} file(s), "
             f"{len(text) / 1e6:.2f} MB, regions {regions}; "

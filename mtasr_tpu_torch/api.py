@@ -42,6 +42,7 @@ from mtasr_tpu_torch.data.tokenizer import (
 from mtasr_tpu_torch.generate.beam import beam_generate
 from mtasr_tpu_torch.generate.engine import generate, generate_ctc
 from mtasr_tpu_torch.parallel.mesh import make_mesh, shard_model
+from mtasr_tpu_torch.utils.profiling import annotate, annotated
 from mtasr_tpu_torch.utils.wer import clean_decoded_text
 
 AudioInput = Union[str, np.ndarray]
@@ -167,6 +168,7 @@ class Transcriber:
         return decode_batches(examples, self.cfg, dc, batch_size)
 
     # -- decoding ------------------------------------------------------------
+    @annotated("mtasr.api.transcribe")
     def transcribe(self, audio: Sequence[AudioInput], *, prompt: str = "",
                    batch_size: int = 8,
                    max_new_tokens: Optional[int] = None,
@@ -178,10 +180,12 @@ class Transcriber:
         `<sc>`-separated transcript per input, in input order."""
         device = next(self.model.parameters()).device
         results: Dict[str, str] = {}
-        for batch in self._batches(self._examples(audio, prompt),
-                                   batch_size):
-            wav = torch.from_numpy(batch.arrays["input_values"]).to(device)
-            amask = torch.from_numpy(batch.arrays["audio_mask"]).to(device)
+        with annotate("mtasr.api.prepare"):
+            examples = self._examples(audio, prompt)
+        for batch in self._batches(examples, batch_size):
+            with annotate("mtasr.api.to_device"):
+                wav = torch.from_numpy(batch.arrays["input_values"]).to(device)
+                amask = torch.from_numpy(batch.arrays["audio_mask"]).to(device)
             pr = batch.arrays.get("prompt_ids")
             pr = torch.from_numpy(pr) if pr is not None else None
             if num_beams > 1:
@@ -197,13 +201,16 @@ class Transcriber:
                 seqs = generate(self.model, self.cfg, wav, amask,
                                 prompt_ids=pr, gen=self.gen,
                                 max_new_tokens=max_new_tokens).sequences
-            seqs = seqs.cpu().numpy()
-            for i, uid in enumerate(batch.utt_ids):
-                text = self.tokenizer.decode(seqs[i],
-                                             skip_special_tokens=False)
-                results[uid] = clean_decoded_text(text) if clean else text
+            with annotate("mtasr.api.to_host"):
+                seqs = seqs.cpu().numpy()
+            with annotate("mtasr.api.detokenize"):
+                for i, uid in enumerate(batch.utt_ids):
+                    text = self.tokenizer.decode(seqs[i],
+                                                 skip_special_tokens=False)
+                    results[uid] = clean_decoded_text(text) if clean else text
         return [results[f"@{i}"] for i in range(len(audio))]
 
+    @annotated("mtasr.api.transcribe_ctc")
     def transcribe_ctc(self, audio: Sequence[AudioInput], *,
                        batch_size: int = 8, max_out_len: int = 150,
                        clean: bool = True) -> List[List[str]]:
@@ -215,20 +222,26 @@ class Transcriber:
         device = next(self.model.parameters()).device
         K = self.cfg.talker_numbers
         results: Dict[str, List[str]] = {}
-        for batch in self._batches(self._examples(audio, prompt=""),
-                                   batch_size):
-            wav = torch.from_numpy(batch.arrays["input_values"]).to(device)
-            amask = torch.from_numpy(batch.arrays["audio_mask"]).to(device)
+        with annotate("mtasr.api.prepare"):
+            examples = self._examples(audio, prompt="")
+        for batch in self._batches(examples, batch_size):
+            with annotate("mtasr.api.to_device"):
+                wav = torch.from_numpy(batch.arrays["input_values"]).to(device)
+                amask = torch.from_numpy(batch.arrays["audio_mask"]).to(device)
             trans, lens = generate_ctc(self.model, self.cfg, wav, amask,
                                        max_out_len=max_out_len)
-            trans = trans.cpu().numpy().reshape(len(batch.utt_ids), K, -1)
-            lens = lens.cpu().numpy().T
-            for i, uid in enumerate(batch.utt_ids):
-                streams = []
-                for k in range(K):
-                    text = self.tokenizer.decode(trans[i, k, :lens[i, k]],
-                                                 skip_special_tokens=False)
-                    streams.append(clean_decoded_text(text) if clean
-                                   else text)
-                results[uid] = streams
+            with annotate("mtasr.api.to_host"):
+                trans = trans.cpu().numpy().reshape(len(batch.utt_ids), K,
+                                                    -1)
+                lens = lens.cpu().numpy().T
+            with annotate("mtasr.api.detokenize"):
+                for i, uid in enumerate(batch.utt_ids):
+                    streams = []
+                    for k in range(K):
+                        text = self.tokenizer.decode(
+                            trans[i, k, :lens[i, k]],
+                            skip_special_tokens=False)
+                        streams.append(clean_decoded_text(text) if clean
+                                       else text)
+                    results[uid] = streams
         return [results[f"@{i}"] for i in range(len(audio))]

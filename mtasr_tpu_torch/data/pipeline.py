@@ -41,6 +41,7 @@ from mtasr_tpu_torch.data.tokenizer import build_prompt_and_input
 from mtasr_tpu_torch.utils.native import (
     wav_header_native, wav_load_batch_native,
 )
+from mtasr_tpu_torch.utils.profiling import annotated
 
 
 @dataclass
@@ -200,6 +201,7 @@ def bucket_length(n_samples: int, dc: DataConfig) -> int:
     return int(dc.bucket_boundaries_seconds[-1] * dc.sampling_rate)
 
 
+@annotated("mtasr.pipeline.collate")
 def collate(examples: Sequence[PreparedExample],
             cfg: SpeechEncoderDecoderConfig, dc: DataConfig, *,
             training: bool = False, label_pad_to: Optional[int] = None,

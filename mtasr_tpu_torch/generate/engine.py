@@ -46,6 +46,7 @@ from mtasr_tpu_torch.models.speech_encoder_decoder import (
 from mtasr_tpu_torch.parallel.collectives import all_gather, all_reduce
 from mtasr_tpu_torch.parallel.mesh import dp_rows, gather_rows, take_rows
 from mtasr_tpu_torch.train.lora import merged
+from mtasr_tpu_torch.utils.profiling import annotate, annotated, count
 
 EOS_CHECK_EVERY = 8
 
@@ -173,6 +174,7 @@ class _Picker:
         return int(all_reduce((~done).sum(), self.group)) == 0
 
 
+@annotated("mtasr.engine.prefill")
 def _prefill(model: SpeechEncoderDecoderModel,
              cfg: SpeechEncoderDecoderConfig, enc: EncodedSpeech,
              prefill_ids: torch.Tensor, splice_index: int, S_max: int,
@@ -248,34 +250,45 @@ def _decode(model: SpeechEncoderDecoderModel,
     B = last_logits.shape[0]
     eos_id, pad_id = cfg.eos_token_id, cfg.pad_token_id
     pick = pick or _Picker(gen, generator)
-    cur = pick(last_logits)
-    out = torch.full((B, max_new_tokens), pad_id, dtype=torch.long,
-                     device=cur.device)
-    out[:, 0] = cur
-    done = cur == eos_id
-    steps = 0
-    for t in range(1, max_new_tokens):
-        if (t - 1) % EOS_CHECK_EVERY == 0 and pick.all_done(done):
-            break
-        emb_t = embed_tokens(dec, dec_cfg, cur[:, None], dtype=dtype)
-        # the token generated at step t-1 sits at position
-        # Lp + n_valid + t - 1 of its row
-        pos_t = (Lp + n_valid)[:, None] - 1 + t
-        logits_t, cache = llama_forward(
-            dec, dec_cfg, emb_t, pos_t, kv_cache=cache,
-            cache_offset=total_prefill + t - 1, logits_to_keep=1,
-            layer_callback=layer_callback)
-        nxt = torch.where(done, pad_id, pick(logits_t[:, -1]))
-        out[:, t] = nxt
-        done = done | (nxt == eos_id)
-        cur = nxt
-        steps += 1
-        if after_step is not None:
-            after_step(steps)
+    with annotate("mtasr.engine.decode"):
+        with annotate("mtasr.engine.pick"):
+            cur = pick(last_logits)
+        out = torch.full((B, max_new_tokens), pad_id, dtype=torch.long,
+                         device=cur.device)
+        out[:, 0] = cur
+        done = cur == eos_id
+        steps = 0
+        for t in range(1, max_new_tokens):
+            # a step span a loop iteration; the iteration that finds every
+            # row done holds its eos check alone
+            with annotate("mtasr.engine.decode.step"):
+                if (t - 1) % EOS_CHECK_EVERY == 0:
+                    with annotate("mtasr.engine.eos_check"):
+                        finished = pick.all_done(done)
+                    if finished:
+                        break
+                emb_t = embed_tokens(dec, dec_cfg, cur[:, None], dtype=dtype)
+                # the token generated at step t-1 sits at position
+                # Lp + n_valid + t - 1 of its row
+                pos_t = (Lp + n_valid)[:, None] - 1 + t
+                logits_t, cache = llama_forward(
+                    dec, dec_cfg, emb_t, pos_t, kv_cache=cache,
+                    cache_offset=total_prefill + t - 1, logits_to_keep=1,
+                    layer_callback=layer_callback)
+                with annotate("mtasr.engine.pick"):
+                    nxt = torch.where(done, pad_id, pick(logits_t[:, -1]))
+                out[:, t] = nxt
+                done = done | (nxt == eos_id)
+                cur = nxt
+                steps += 1
+                count("mtasr.engine.decode.steps")
+                if after_step is not None:
+                    after_step(steps)
     return GenerateOutput(sequences=out, lengths=(out != pad_id).sum(1),
                           steps=steps)
 
 
+@annotated("mtasr.engine.generate")
 def generate(model: SpeechEncoderDecoderModel,
              cfg: SpeechEncoderDecoderConfig, input_values: torch.Tensor,
              audio_mask: Optional[torch.Tensor],
@@ -335,8 +348,9 @@ def _generate(model, cfg, input_values, audio_mask, prompt_ids, gen,
     if max_new_tokens is None:
         max_new_tokens = gen.max_new_tokens or gen.max_length
     B = input_values.shape[0]
-    enc = encode_maybe_chunked(model, cfg, input_values, audio_mask,
-                               gen.encode_chunk)
+    with annotate("mtasr.engine.encode"):
+        enc = encode_maybe_chunked(model, cfg, input_values, audio_mask,
+                                   gen.encode_chunk)
     prefill_ids, splice_index = prompt_layout(cfg, B, prompt_ids,
                                               input_values.device)
     return decode_encoded(model, cfg, enc, prefill_ids, splice_index, gen,
@@ -361,6 +375,7 @@ def decode_encoded(model, cfg, enc: EncodedSpeech, prefill_ids: torch.Tensor,
                    max_new_tokens, pick.generator, cb, pick, after_step)
 
 
+@annotated("mtasr.engine.generate_ctc")
 @torch.inference_mode()
 def generate_ctc(model: SpeechEncoderDecoderModel,
                  cfg: SpeechEncoderDecoderConfig, input_values: torch.Tensor,

@@ -177,7 +177,7 @@ def generate_pipelined(model: SpeechEncoderDecoderModel,
                 with streams.encoder():
                     _layer(model, cfg, nxt)
         pick = _Picker(gen, generator, mesh, rows)
-        with annotate("pipelined/stage"):
+        with annotate("mtasr.pipelined.stage"):
             out = decode_encoded(
                 model, cfg, enc, prefill_ids, splice_index, gen,
                 max_new_tokens, pick,
@@ -198,14 +198,14 @@ def generate_pipelined(model: SpeechEncoderDecoderModel,
             wav = wav.to(device)
             amask = None if amask is None else amask.to(device)
             streams.inputs(wav, amask)
-            with annotate("pipelined/frontend"), streams.encoder():
+            with annotate("mtasr.pipelined.frontend"), streams.encoder():
                 nxt = _frontend(model, cfg, wav, amask)
             if prev is None:
                 layers_to_end(nxt)
             else:
                 outs.append(decode(prev, nxt))
             streams.join(nxt)
-            with annotate("pipelined/post_encode"):
+            with annotate("mtasr.pipelined.post_encode"):
                 enc = _post_encode(model, cfg, nxt.hidden, amask)
             prefill_ids, splice_index = prompt_layout(
                 cfg, wav.shape[0], prompt, device)

@@ -62,6 +62,7 @@ from mtasr_tpu_torch.ops.rope import (
 from mtasr_tpu_torch.parallel.collectives import (
     copy_to_tp, gather_from_tp, group_rank, group_size, reduce_from_tp,
 )
+from mtasr_tpu_torch.utils.profiling import annotate
 
 
 @dataclass
@@ -387,26 +388,29 @@ def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
 
     def layer(idx, hidden):
         lp = dec.model.layers[str(idx)]
-        h = rms_norm(hidden, lp.input_layernorm.weight, cfg.rms_norm_eps)
-        hidden = hidden + _attention(
-            lp.self_attn, cfg, h, cos, sin, mask, idx, kv_cache,
-            cache_offset, lora_layer=lora_layer(lora, idx),
-            lora_scale=lora.scale if lora is not None else 1.0,
-            generator=generator, lora_dropout=lora_dropout)
+        with annotate("mtasr.decoder.attention"):
+            h = rms_norm(hidden, lp.input_layernorm.weight, cfg.rms_norm_eps)
+            hidden = hidden + _attention(
+                lp.self_attn, cfg, h, cos, sin, mask, idx, kv_cache,
+                cache_offset, lora_layer=lora_layer(lora, idx),
+                lora_scale=lora.scale if lora is not None else 1.0,
+                generator=generator, lora_dropout=lora_dropout)
         if layer_callback is not None:
             hidden = layer_callback(idx, hidden)
-        h = rms_norm(hidden, lp.post_attention_layernorm.weight,
-                     cfg.rms_norm_eps)
-        return hidden + _mlp(lp.mlp, h)
+        with annotate("mtasr.decoder.mlp"):
+            h = rms_norm(hidden, lp.post_attention_layernorm.weight,
+                         cfg.rms_norm_eps)
+            return hidden + _mlp(lp.mlp, h)
 
     hidden = inputs_embeds
     remat = cfg.remat and kv_cache is None and torch.is_grad_enabled()
     for idx in range(cfg.num_hidden_layers):
         hidden = (remat_layer(layer, generator, idx, hidden) if remat
                   else layer(idx, hidden))
-    hidden = rms_norm(hidden, dec.model.norm.weight, cfg.rms_norm_eps)
-    if logits_to_keep:
-        hidden = hidden[:, -logits_to_keep:, :]
-    if compute_logits:
-        return lm_head(dec, cfg, hidden), kv_cache
-    return hidden, kv_cache
+    with annotate("mtasr.decoder.head"):
+        hidden = rms_norm(hidden, dec.model.norm.weight, cfg.rms_norm_eps)
+        if logits_to_keep:
+            hidden = hidden[:, -logits_to_keep:, :]
+        if compute_logits:
+            return lm_head(dec, cfg, hidden), kv_cache
+        return hidden, kv_cache

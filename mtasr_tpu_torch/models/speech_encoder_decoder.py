@@ -48,6 +48,7 @@ from mtasr_tpu_torch.models.wavlm import (
     WavLM, feature_vector_attention_mask, wavlm_adapter, wavlm_forward,
 )
 from mtasr_tpu_torch.ops.ctc import ctc_greedy_collapse
+from mtasr_tpu_torch.utils.profiling import annotate
 
 
 class SpeechEncoderDecoderModel(nn.Module):
@@ -145,9 +146,10 @@ def encode_feats(model: SpeechEncoderDecoderModel,
                  deterministic: bool = True,
                  generator: Optional[torch.Generator] = None) -> SpeechFeats:
     """Stage A: the encoder and, with `talker_ctc`, the separator."""
-    out = wavlm_forward(model.encoder, cfg.encoder, input_values, audio_mask,
-                        mask_time_indices=mask_time_indices,
-                        deterministic=deterministic, generator=generator)
+    with annotate("mtasr.encoder.wavlm"):
+        out = wavlm_forward(model.encoder, cfg.encoder, input_values,
+                            audio_mask, mask_time_indices=mask_time_indices,
+                            deterministic=deterministic, generator=generator)
     return speech_feats(model, cfg, out.encoder_hidden_state,
                         out.last_hidden_state, audio_mask,
                         deterministic=deterministic, generator=generator)
@@ -172,10 +174,11 @@ def speech_feats(model: SpeechEncoderDecoderModel,
         mask_x0 = torch.ones((B, T0), dtype=torch.bool, device=speech.device)
     sep_hidden = None
     if cfg.talker_ctc:
-        sep_hidden = separator_forward(
-            model.separator, mixed, cfg.talker_numbers,
-            lstm_dropout=cfg.separator_dropout, deterministic=deterministic,
-            generator=generator)
+        with annotate("mtasr.encoder.separator"):
+            sep_hidden = separator_forward(
+                model.separator, mixed, cfg.talker_numbers,
+                lstm_dropout=cfg.separator_dropout,
+                deterministic=deterministic, generator=generator)
     return SpeechFeats(mixed=mixed, speech=speech, sep_hidden=sep_hidden,
                        enc_mask=enc_mask, mask_x0=mask_x0)
 
@@ -387,9 +390,12 @@ def forward_ctc(model: SpeechEncoderDecoderModel,
     feats = encode_feats(model, cfg, input_values, audio_mask)
     outs, lens = [], []
     for head, hs in zip(ctc_heads(model, cfg), feats.sep_hidden):
-        col, n = ctc_greedy_collapse(ctc_argmax(head, hs), feats.mask_x0,
-                                     cfg.ctc_blank_id, cfg.pad_token_id,
-                                     max_out_len)
+        with annotate("mtasr.ctc.heads"):
+            path = ctc_argmax(head, hs)
+        with annotate("mtasr.ctc.collapse"):
+            col, n = ctc_greedy_collapse(path, feats.mask_x0,
+                                         cfg.ctc_blank_id, cfg.pad_token_id,
+                                         max_out_len)
         outs.append(col)
         lens.append(n)
     return torch.cat(outs, dim=1), torch.stack(lens)

@@ -109,8 +109,8 @@ def _own_kernels() -> Tuple[str, ...]:
 def profiled(fn: Callable, trace_path=None, inference: bool = True):
     """(result, device busy ms, top kernels [(name, ms, count)]: the ten
     largest by device time and the port's own kernels). The regions that
-    `utils/profiling.annotate` names also appear on the device's timeline;
-    they are not device work and are left out."""
+    `record_function` names also appear on the device's timeline; they
+    are not device work and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()

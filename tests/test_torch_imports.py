@@ -272,6 +272,9 @@ JAX_ONLY = {
     r"ops/attention\.py::make_causal_mask": "called by nothing in the JAX "
                                             "package; the port's decoder "
                                             "builds its mask in place",
+    r"utils/profiling\.py::StepTimer": "HF's speed_metrics, read by "
+                                       "nothing: train/loop.py computes "
+                                       "samples and steps a second inline",
 }
 
 
