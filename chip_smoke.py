@@ -33,7 +33,10 @@ Phases, one line each, any failure exits non-zero:
 4. serve (bf16): three `Transcriber.transcribe` calls of 8 padded 6-10 s
    waveforms each, at full width with random bf16 weights from a seeded
    generator, up to 150 new tokens; the kernels' launch counts, set to 0
-   just before and read just after, prove the run went through them; then
+   just before and read just after, prove the run went through them, and
+   one more call under a CUDA-activity profiler counts the decode step's
+   kernel on the card (the greedy step replays from a CUDA graph after
+   step 2, so its wrapper runs only at step 1 and at the capture); then
    the encode / prefill / decode breakdown and the RTFx;
 5. model (bf16): the whole model with kernels against the whole model with
    the plain versions, on one batch: the logits of the prefill and of the
@@ -738,11 +741,16 @@ def expected_counts(cfg, steps, short: bool, int8: bool):
 def serve_phase(torch, card: str, cfg, transcriber, requests, tag: str,
                 short: bool = False, captured=None, timing=None):
     """`transcriber.transcribe` on each request, with the launch counts set
-    to 0 just before and read just after; fails unless each kernel of the
-    path launched exactly as often as the path needs. With `captured` (a
-    list), every chunk-kernel call appends (name, copies of its inputs);
-    `timing` (a dict) receives each call's wall, audio seconds and decode
-    steps. Returns (counts, RTFx over the calls after the first)."""
+    to 0 just before and read just after; fails unless each kernel wrapper
+    ran exactly as often as the path needs (the decode step's kernel at
+    step 1 and at the capture of the replayed step), or unless one more
+    call, under a CUDA-activity profiler, replayed every step after the
+    first and ran the decode step's kernel on the card once a decoder
+    layer a step (`device_step_kernels`: the replays included; within the
+    1 % of records CUPTI may lose). With `captured` (a list), every chunk-kernel call
+    appends (name, copies of its inputs); `timing` (a dict) receives each
+    call's wall, audio seconds and decode steps. Returns (counts, RTFx over
+    the calls after the first)."""
     from unittest import mock
 
     import mtasr_tpu_torch.api as api_mod
@@ -784,7 +792,9 @@ def serve_phase(torch, card: str, cfg, transcriber, requests, tag: str,
     counts = kernels.launch_counts()
     if timing is not None:
         timing.update(walls=walls, audio=audio_s, steps=steps)
-    expect = expected_counts(cfg, steps, short,
+    # the step's Python runs at step 1 and at the capture; the replays run
+    # the captured kernels without it
+    expect = expected_counts(cfg, [min(n, 2) for n in steps], short,
                              transcriber.gen.kv_quant)
     say(f"serve[{tag}]: {len(requests)} requests x {BATCH} waveforms, walls "
         f"{[round(x, 3) for x in walls]} s, audio "
@@ -792,11 +802,51 @@ def serve_phase(torch, card: str, cfg, transcriber, requests, tag: str,
         f"{counts}")
     if counts != expect or sum(steps) == 0:
         fail(f"{tag}: launch counts {counts} != expected {expect}")
+    name = "decode_int8_kernel" if transcriber.gen.kv_quant else \
+        "decode_attn_kernel"
+    traced = []
+    with mock.patch.object(api_mod, "generate",
+                           lambda *a, **kw: traced.append(
+                               real_generate(*a, **kw)) or traced[-1]):
+        ran, replays = device_step_kernels(
+            torch, name, lambda: transcriber.transcribe(
+                requests[-1], batch_size=BATCH, max_new_tokens=MAX_NEW))
+    n = traced[0].steps
+    want = cfg.decoder.num_hidden_layers * n
+    say(f"serve[{tag}]: a traced call of {n} decode steps, {replays} "
+        f"replayed, ran {ran} {name} on the card ({want} wanted)")
+    # CUPTI loses a few records of a large trace, replayed or not (on an
+    # H100: up to 56 of a call's 105870, 17 of its 2384 decode kernels):
+    # the card's count may fall short by 1 %; the replay counter is exact
+    if not want - want // 100 <= ran <= want or replays != n - 1:
+        fail(f"{tag}: {ran} {name} ran on the card, not {want}, or {replays}"
+             f" of {n} steps replayed")
     warm = slice(1, None) if len(walls) > 1 else slice(None)
     rtfx = sum(audio_s[warm]) / sum(walls[warm])
     say(f"serve[{tag}]: RTFx {rtfx:.2f} (calls after the first; call 1 "
         f"{audio_s[0] / walls[0]:.2f}) B={BATCH} [{card}]")
     return counts, rtfx
+
+
+def device_step_kernels(torch, name: str, fn):
+    """fn() under a CUDA-activity profiler: (the count of the card's kernel
+    records whose name holds `name`, the program's decode steps replayed
+    from a CUDA graph). CUPTI records each kernel of a replayed graph,
+    correlated to its one graph launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mtasr_tpu_torch.generate.engine import REPLAYS
+    from mtasr_tpu_torch.utils import profiling
+    torch.cuda.synchronize()
+    profiling.take()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ran = sum(1 for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA
+              and not e.is_user_annotation() and name in e.name())
+    return ran, profiling.take()[1].get(REPLAYS, 0)
 
 
 @contextlib.contextmanager
@@ -896,7 +946,8 @@ def step_logits(torch, cfg, model, gen, wav, amask, tokens=None,
     """Logits [1 + GATE_STEPS, B, V] of the prefill and the first decode
     steps of `generate`, and the tokens it chose. With `tokens` given, step
     t is fed tokens[:, t] (teacher forcing), so that a second run can be
-    compared with the first step by step."""
+    compared with the first step by step. The loop runs eagerly, so that
+    `sample` sees every step (a replayed graph runs it once, at capture)."""
     from unittest import mock
 
     from mtasr_tpu_torch.generate import engine
@@ -908,7 +959,8 @@ def step_logits(torch, cfg, model, gen, wav, amask, tokens=None,
         return logits.argmax(-1) if tokens is None else tokens[:, t]
 
     with plain_versions(plain, decoder_only), \
-            mock.patch.object(engine, "_sample_token", sample):
+            mock.patch.object(engine, "_sample_token", sample), \
+            mock.patch.object(engine, "_replayable", lambda *a: False):
         out = engine.generate(model, cfg, wav, amask, gen=gen,
                               max_new_tokens=GATE_STEPS + 1)
     return torch.stack(seen), out.sequences
@@ -2174,7 +2226,8 @@ def counted(torch, fn):
 
 def greedy_with_gaps(torch, model, cfg, wav, amask, kv_quant):
     """Greedy tokens [B, MAX_NEW] (CPU), the top-1 minus top-2 logit of
-    each step [B, MAX_NEW] (CPU), ms per emitted token, emitted tokens."""
+    each step [B, MAX_NEW] (CPU), ms per emitted token, emitted tokens;
+    the eager loop, whose every step `sample` sees."""
     from unittest import mock
 
     from mtasr_tpu_torch.config import GenerationConfig
@@ -2185,7 +2238,8 @@ def greedy_with_gaps(torch, model, cfg, wav, amask, kv_quant):
         top = logits.float().topk(2, -1).values
         gaps.append(top[:, 0] - top[:, 1])
         return logits.argmax(-1)
-    with mock.patch.object(engine, "_sample_token", sample):
+    with mock.patch.object(engine, "_sample_token", sample), \
+            mock.patch.object(engine, "_replayable", lambda *a: False):
         out, _, wall = counted(torch, lambda: engine.generate(
             model, cfg, wav, amask, max_new_tokens=MAX_NEW,
             gen=GenerationConfig(do_sample=False, kv_quant=kv_quant)))

@@ -10,7 +10,16 @@ The JAX package runs the step loop as one compiled `lax.while_loop` that
 tests for eos every step. Here it is a Python loop that asks the device
 whether every row is done only every `EOS_CHECK_EVERY` steps, so the host
 does not wait on the device each step; rows that are done emit `pad`, so
-the extra steps change no output.
+the extra steps change no output. The step's inputs all live on the
+device (the token, the step index, the done rows, the output), and the
+step advances them itself. On a card, with the greedy pick of one
+process or one dp index and no tp group in the model (`_replayable`),
+step 1 runs eagerly, step 2 captures the step in a CUDA graph and every
+later step replays it: one launch a step, the same kernels (#4 / #6
+among them) on the same values. The CPU, sampling (its generator's
+state), a dp group's gathered pick and tp's collectives run the same
+step eagerly. The eos check, the spans and the pipelined stream's
+`after_step` stay outside the graph.
 
 `generate_ctc` is the one-shot CTC decode: each CTC head's collapsed argmax
 path on its separated stream, no decoder.
@@ -30,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -232,6 +241,66 @@ def _prefill(model: SpeechEncoderDecoderModel,
     return cache, last_logits, n_valid, total_prefill
 
 
+REPLAYS = "mtasr.engine.decode.graph_replays"
+_capture_streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _replayable(model: SpeechEncoderDecoderModel, pick: _Picker,
+                device: torch.device) -> bool:
+    """Whether the decode step replays from a CUDA graph: on a card, with
+    the greedy pick of one process or one dp index, and no module of the
+    model in a tp group. Sampling (its generator's state), a dp group's
+    gathered pick and tp's collectives would each sit in the graph, so
+    those steps, like the CPU's, run eagerly."""
+    return (device.type == "cuda" and not pick.gen.do_sample
+            and pick.group is None
+            and all(getattr(m, "tp", None) is None for m in model.modules()))
+
+
+class _StepGraph:
+    """A decode step replayed from a CUDA graph. The first call runs the
+    step eagerly on a side stream, the warm-up a capture needs (the
+    stream's cuBLAS workspaces); the second captures it there, which runs
+    nothing, then replays it, as every later call does: one graph launch
+    on the current stream, the step reading and advancing its own static
+    tensors. The graph and its memory pool go with the object. The kernel
+    wrappers' launch counts see the eager step and the capture, not the
+    replays: what the card ran is read from its trace."""
+
+    def __init__(self, step: Callable[[], None], device: torch.device):
+        self.step, self.graph, self.warm = step, None, False
+        if device not in _capture_streams:
+            _capture_streams[device] = torch.cuda.Stream(device)
+        self.side = _capture_streams[device]
+
+    def __call__(self) -> None:
+        if self.graph is None:
+            main = torch.cuda.current_stream(self.side.device)
+            self.side.wait_stream(main)
+            with torch.cuda.stream(self.side):
+                if self.warm:
+                    self._capture()
+                else:
+                    self.step()
+            main.wait_stream(self.side)
+            if not self.warm:
+                self.warm = True
+                return
+        self.graph.replay()
+        count(REPLAYS)
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the CUDA calls of the process's other threads do
+        # not void this thread's capture
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            self.step()
+        finally:
+            graph.capture_end()
+        self.graph = graph
+
+
 def _decode(model: SpeechEncoderDecoderModel,
             cfg: SpeechEncoderDecoderConfig, cache: KVCache,
             last_logits: torch.Tensor, n_valid: torch.Tensor, Lp: int,
@@ -245,41 +314,59 @@ def _decode(model: SpeechEncoderDecoderModel,
     (the adapters, with the memory keys and values it kept); `pick` the
     token choice (`_Picker`; by default this batch's own); `after_step`
     is called with the count of steps run after each step (the pipelined
-    stream's encoder layers go there)."""
+    stream's encoder layers go there).
+
+    The step reads its inputs from tensors it advances in place (the
+    token, the step index `t`, the done rows, the output), so that the
+    host passes it nothing: where `_replayable`, step 1 runs eagerly and
+    every later step replays it from a CUDA graph (`_StepGraph`), with
+    the eos check, the spans and `after_step` outside the graph."""
     dec, dec_cfg = model.decoder, cfg.decoder
     B = last_logits.shape[0]
     eos_id, pad_id = cfg.eos_token_id, cfg.pad_token_id
     pick = pick or _Picker(gen, generator)
     with annotate("mtasr.engine.decode"):
-        with annotate("mtasr.engine.pick"):
-            cur = pick(last_logits)
+        device = last_logits.device
         out = torch.full((B, max_new_tokens), pad_id, dtype=torch.long,
-                         device=cur.device)
-        out[:, 0] = cur
+                         device=device)
+        with annotate("mtasr.engine.pick"):
+            out[:, 0] = pick(last_logits)
+        cur = out[:, 0].clone()
         done = cur == eos_id
+        # the token generated at step t-1 sits at position
+        # Lp + n_valid + t - 1 of its row, its K/V at slot
+        # total_prefill + t - 1
+        t = torch.ones((), dtype=torch.long, device=device)
+        pos0 = (Lp + n_valid)[:, None] - 1
+
+        def step() -> None:
+            emb_t = embed_tokens(dec, dec_cfg, cur[:, None], dtype=dtype)
+            logits_t, _ = llama_forward(
+                dec, dec_cfg, emb_t, pos0 + t, kv_cache=cache,
+                cache_offset=t + (total_prefill - 1), logits_to_keep=1,
+                layer_callback=layer_callback)
+            with annotate("mtasr.engine.pick"):
+                nxt = torch.where(done, pad_id, pick(logits_t[:, -1]))
+            out.index_copy_(1, t.reshape(1), nxt[:, None])
+            done.logical_or_(nxt == eos_id)
+            cur.copy_(nxt)
+            t.add_(1)
+
+        run = _StepGraph(step, device) if _replayable(model, pick, device) \
+            else step
+        # declared, so that a loop that replays nothing reads 0
+        count(REPLAYS, 0)
         steps = 0
-        for t in range(1, max_new_tokens):
+        for i in range(1, max_new_tokens):
             # a step span a loop iteration; the iteration that finds every
             # row done holds its eos check alone
             with annotate("mtasr.engine.decode.step"):
-                if (t - 1) % EOS_CHECK_EVERY == 0:
+                if (i - 1) % EOS_CHECK_EVERY == 0:
                     with annotate("mtasr.engine.eos_check"):
                         finished = pick.all_done(done)
                     if finished:
                         break
-                emb_t = embed_tokens(dec, dec_cfg, cur[:, None], dtype=dtype)
-                # the token generated at step t-1 sits at position
-                # Lp + n_valid + t - 1 of its row
-                pos_t = (Lp + n_valid)[:, None] - 1 + t
-                logits_t, cache = llama_forward(
-                    dec, dec_cfg, emb_t, pos_t, kv_cache=cache,
-                    cache_offset=total_prefill + t - 1, logits_to_keep=1,
-                    layer_callback=layer_callback)
-                with annotate("mtasr.engine.pick"):
-                    nxt = torch.where(done, pad_id, pick(logits_t[:, -1]))
-                out[:, t] = nxt
-                done = done | (nxt == eos_id)
-                cur = nxt
+                run()
                 steps += 1
                 count("mtasr.engine.decode.steps")
                 if after_step is not None:

@@ -37,7 +37,7 @@ Parameter names are the JAX tree's flat keys under `decoder.`.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -269,7 +269,7 @@ def _lora_linear(m: nn.Module, x: torch.Tensor, ab: Optional[nn.Module],
 def _attention(att: _SelfAttention, cfg: LlamaConfig, x: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor, mask: torch.Tensor,
                layer_idx: int, kv_cache: Optional[KVCache],
-               cache_offset: int, lora_layer: Optional[nn.Module] = None,
+               slots: torch.Tensor, lora_layer: Optional[nn.Module] = None,
                lora_scale: float = 1.0,
                generator: Optional[torch.Generator] = None,
                lora_dropout: float = 0.0) -> torch.Tensor:
@@ -295,22 +295,20 @@ def _attention(att: _SelfAttention, cfg: LlamaConfig, x: torch.Tensor,
         return proj("o_proj", out.reshape(B, L, Hq * D))
     # In place: the step's K/V go straight into their slots of the
     # preallocated cache (the JAX package, immutable, wrote a new buffer with
-    # dynamic_update_slice). Attention then reads what was written: for an
-    # int8 cache the round-tripped K/V, not the fresh ones.
+    # dynamic_update_slice), by `index_copy_` at `slots` ([L] on the device,
+    # whose values the host never reads: a decode step replayed from a CUDA
+    # graph advances them there). Attention then reads what was written: for
+    # an int8 cache the round-tripped K/V, not the fresh ones.
     kc, vc = kv_cache.k[layer_idx], kv_cache.v[layer_idx]
-    end = cache_offset + L
     kvs = None
     if kv_cache.kv_scale is not None:
-        k8, ks = _quantize_kv(k)
-        v8, vs = _quantize_kv(v)
-        kc[:, cache_offset:end] = k8.reshape(B, L, Hkv * D)
-        vc[:, cache_offset:end] = v8.reshape(B, L, Hkv * D)
+        k, ks = _quantize_kv(k)
+        v, vs = _quantize_kv(v)
         kvs = kv_cache.kv_scale[layer_idx]
-        kvs[:, :, cache_offset:end] = torch.stack(
-            [ks, vs], dim=-1).reshape(B, L, 2 * Hkv).transpose(1, 2)
-    else:
-        kc[:, cache_offset:end] = k.reshape(B, L, Hkv * D)
-        vc[:, cache_offset:end] = v.reshape(B, L, Hkv * D)
+        kvs.index_copy_(2, slots, torch.stack([ks, vs], dim=-1).reshape(
+            B, L, 2 * Hkv).transpose(1, 2).to(kvs.dtype))
+    kc.index_copy_(1, slots, k.reshape(B, L, Hkv * D).to(kc.dtype))
+    vc.index_copy_(1, slots, v.reshape(B, L, Hkv * D).to(vc.dtype))
     if L == 1:
         qd, md = q[:, 0].contiguous(), mask[:, 0, 0, :].contiguous()
         out = (decode_attention(qd, kc, vc, md) if kvs is None else
@@ -348,7 +346,8 @@ def _mlp(mlp: _MLP, x: torch.Tensor) -> torch.Tensor:
 def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
                   position_ids: torch.Tensor, *,
                   key_valid_mask: Optional[torch.Tensor] = None,
-                  kv_cache: Optional[KVCache] = None, cache_offset: int = 0,
+                  kv_cache: Optional[KVCache] = None,
+                  cache_offset: Union[int, torch.Tensor] = 0,
                   compute_logits: bool = True, logits_to_keep: int = 0,
                   lora: Optional[nn.Module] = None, lora_dropout: float = 0.0,
                   generator: Optional[torch.Generator] = None,
@@ -358,6 +357,10 @@ def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     """Returns (logits [B, L or logits_to_keep, V], or the final hidden
     states, and the cache). Query row i (absolute position cache_offset + i)
     attends to slot j iff j <= cache_offset + i and the slot is valid.
+    `cache_offset` is an int, or a 0-d long tensor on the cache's device
+    (a decode step captured in a CUDA graph, whose offset the graph
+    advances); either way the cache is written by `index_copy_` at the
+    slots `cache_offset + arange(L)`.
 
     `lora` (the model's `decoder_lora`, without a cache only) adds its
     branch to q/k/v/o; `generator` drives its input dropout (none without
@@ -376,11 +379,14 @@ def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
 
     S = kv_cache.max_len if kv_cache is not None else L
     j = torch.arange(S, device=device)[None, None, :]
-    i_abs = cache_offset + torch.arange(L, device=device)[None, :, None]
-    mask = j <= i_abs                                         # [1, L, S]
+    i_abs = cache_offset + torch.arange(L, device=device)     # [L]
+    mask = j <= i_abs[None, :, None]                          # [1, L, S]
     if kv_cache is not None:
-        kv_cache.valid[:, cache_offset:cache_offset + L] = (
-            key_valid_mask if key_valid_mask is not None else True)
+        if key_valid_mask is None:
+            kv_cache.valid.index_fill_(1, i_abs, True)
+        else:
+            kv_cache.valid.index_copy_(1, i_abs, key_valid_mask.to(
+                kv_cache.valid.dtype))
         mask = mask & kv_cache.valid[:, None, :]
     elif key_valid_mask is not None:
         mask = mask & key_valid_mask[:, None, :]
@@ -392,7 +398,7 @@ def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
             h = rms_norm(hidden, lp.input_layernorm.weight, cfg.rms_norm_eps)
             hidden = hidden + _attention(
                 lp.self_attn, cfg, h, cos, sin, mask, idx, kv_cache,
-                cache_offset, lora_layer=lora_layer(lora, idx),
+                i_abs, lora_layer=lora_layer(lora, idx),
                 lora_scale=lora.scale if lora is not None else 1.0,
                 generator=generator, lora_dropout=lora_dropout)
         if layer_callback is not None:

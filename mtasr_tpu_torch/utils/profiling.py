@@ -20,7 +20,8 @@
   card's size; `{}` on the CPU, as the JAX CPU device gives.
 
 Every span of the port is named `mtasr.<layer>.<what>` (README.md lists
-them); the one counter is `mtasr.engine.decode.steps`.
+them); the counters are `mtasr.engine.decode.steps` and
+`mtasr.engine.decode.graph_replays`.
 """
 from __future__ import annotations
 

@@ -1238,7 +1238,10 @@ def test_family_kept_memory_kv_gives_the_same_logits(gen, leg):
             def sample(logits, g, generator, seen=seen):
                 seen.append(logits.clone())
                 return logits.argmax(-1)
-            with mock.patch.object(engine, "_sample_token", sample):
+            # the eager loop: `sample` keeps every step's logits
+            with mock.patch.object(engine, "_sample_token", sample), \
+                    mock.patch.object(engine, "_replayable",
+                                      lambda *a: False):
                 engine._decode(model, cfg, cache, last, n_valid,
                                ids.shape[1], total, torch.bfloat16, gcfg, 12,
                                None, cb)
@@ -1392,6 +1395,184 @@ def test_beam_gather_covers_the_int8_cache(gen):
 
 
 # ---------------------------------------------------------------------------
+# the greedy decode step replayed from a CUDA graph (generate/engine.py)
+# ---------------------------------------------------------------------------
+def _graph_model(leg):
+    """Two decoder layers: "bf16" MHA at head dim 64 (32 q / 32 kv heads),
+    or "w8a8" LLaMA-3.1-8B's layers (32 q / 8 kv heads of 128) quantized
+    w8a8 beside an int8 cache; "family A" / "family B w8a8" the bridge and
+    adapter family's configurations (`full_width.FAMILY`, LLaMA-3.2-1B's
+    layers), whose adapters run in the step as the `layer_callback`, B's
+    decoder quantized w8a8 beside an int8 cache. The decoder's matrices at
+    8x the init's scale, so that the tokens vary from step to step."""
+    from mtasr_tpu_torch.config import llama_1b_config, llama_8b_config
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.utils.convert import init_random
+    from mtasr_tpu_torch.utils.quantize import quantize_for_serving
+    family = leg.split()[1] if leg.startswith("family") else None
+    decoder = (llama_8b_config if leg == "w8a8" else llama_1b_config
+               if family else
+               lambda **kw: llama_1b_config(num_key_value_heads=32, **kw))
+    cfg, _ = full_width.config(family=family, decoder=decoder,
+                               num_hidden_layers=2, mask_time_prob=0.0)
+    cfg.decoder.num_hidden_layers = 2
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    model = init_random(cfg, g, "cuda", torch.bfloat16)
+    with torch.no_grad():
+        for p in model.decoder.parameters():
+            if p.dim() == 2:
+                p.mul_(8)
+    if leg.endswith("w8a8"):
+        quantize_for_serving(model, "w8a8")
+    return cfg, model
+
+
+def _eos_at(cfg, monkeypatch):
+    """Greedy, but a token that is 3 mod 7 becomes eos: rows end at
+    different steps, the same in the eager loop and in the graph."""
+    from mtasr_tpu_torch.generate import engine
+    real = engine._sample_token
+
+    def pick(logits, g, generator):
+        tok = real(logits, g, generator)
+        return torch.where(tok % 7 == 3, cfg.eos_token_id, tok)
+    monkeypatch.setattr(engine, "_sample_token", pick)
+
+
+STEP_KERNELS = ("decode_attn_kernel", "decode_int8_kernel")
+
+
+def _on_card(fn):
+    """(fn(), the card's records of the decode step's kernels by name)
+    under a CPU and CUDA profiler (which also keeps the program's
+    counters): CUPTI records a replayed graph's kernels one by one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ran = dict.fromkeys(STEP_KERNELS, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            for name in STEP_KERNELS:
+                ran[name] += name in e.name()
+    return out, ran
+
+
+def _decoded(model, cfg, wav, amask, gen_cfg, max_new, replay=True,
+             generator=None):
+    """(output, counters, launches, ran, captures) of one `generate`
+    `_on_card`: `launches` the kernel wrappers' counts, `ran` the card's
+    records of the decode step's kernels; with replay False the engine's
+    predicate is patched to the eager loop."""
+    from unittest import mock
+
+    from mtasr_tpu_torch.generate import engine
+    from mtasr_tpu_torch.ops import kernels
+    from mtasr_tpu_torch.utils import profiling
+    captures = []
+    capture = engine._StepGraph._capture
+
+    def counted(self):
+        captures.append(1)
+        return capture(self)
+    kernels.reset_launch_counts()
+    profiling.take()
+    with mock.patch.object(engine._StepGraph, "_capture", counted), \
+            contextlib.ExitStack() as stack:
+        if not replay:
+            stack.enter_context(mock.patch.object(
+                engine, "_replayable", lambda *a: False))
+        out, ran = _on_card(lambda: engine.generate(
+            model, cfg, wav, amask, gen=gen_cfg, generator=generator,
+            max_new_tokens=max_new))
+    _, counts = profiling.take()
+    return out, counts, kernels.launch_counts(), ran, len(captures)
+
+
+@pytest.mark.parametrize("leg", ["bf16", "w8a8", "family A",
+                                 "family B w8a8"])
+def test_replayed_decode_equals_the_eager_loop(gen, leg, monkeypatch):
+    """The greedy loop replayed from a CUDA graph against the same loop
+    run eagerly (the engine's predicate patched): the same sequences,
+    lengths and steps, and the decode step's kernel run on the card once
+    a layer a step (its wrapper, in Python, at step 1 and at the capture
+    alone); one capture, `steps - 1` replays; then a call of another
+    S_max captures again and still matches. The family legs run their
+    adapters inside the graph."""
+    from mtasr_tpu_torch.config import GenerationConfig
+    from mtasr_tpu_torch.generate import engine
+    cfg, model = _graph_model(leg)
+    _eos_at(cfg, monkeypatch)
+    wav, amask = _wav_batch(B=6)
+    int8 = leg.endswith("w8a8")
+    g = GenerationConfig(do_sample=False, kv_quant=int8)
+    wrapper, kernel = (("decode_attention_int8", "decode_int8_kernel")
+                       if int8 else ("decode_attention", "decode_attn_kernel"))
+    for max_new in (40, 29):
+        ref, rc, rl, rran, rcap = _decoded(model, cfg, wav, amask, g,
+                                           max_new, replay=False)
+        out, counts, launches, ran, caps = _decoded(model, cfg, wav, amask,
+                                                    g, max_new)
+        assert torch.equal(out.sequences, ref.sequences), max_new
+        assert torch.equal(out.lengths, ref.lengths)
+        assert out.steps == ref.steps > 2
+        lengths = out.lengths.tolist()
+        assert len(set(lengths)) > 1 and min(lengths) < max_new, lengths
+        assert (rcap, rc[engine.REPLAYS]) == (0, 0)
+        assert caps == 1
+        assert counts[engine.REPLAYS] == out.steps - 1
+        assert counts["mtasr.engine.decode.steps"] == out.steps
+        assert ran == rran
+        assert ran[kernel] == 2 * out.steps
+        assert rl[wrapper] == 2 * out.steps
+        assert launches[wrapper] == 2 * 2
+
+
+def test_two_token_call_captures_nothing(gen):
+    """A call whose loop runs one step (2 new tokens, the benchmark's
+    warm-up) runs it eagerly and captures nothing; 3 tokens capture once
+    and replay once."""
+    from mtasr_tpu_torch.config import GenerationConfig
+    from mtasr_tpu_torch.generate import engine
+    cfg, model = _graph_model("bf16")
+    wav, amask = _wav_batch()
+    g = GenerationConfig(do_sample=False)
+    for max_new, caps_want in ((2, 0), (3, 1)):
+        ref, *_ = _decoded(model, cfg, wav, amask, g, max_new, replay=False)
+        out, counts, launches, ran, caps = _decoded(model, cfg, wav, amask,
+                                                    g, max_new)
+        assert torch.equal(out.sequences, ref.sequences)
+        assert out.steps == max_new - 1
+        assert caps == caps_want
+        assert counts[engine.REPLAYS] == caps_want
+        assert launches["decode_attention"] == 2 * out.steps
+        assert ran["decode_attn_kernel"] == 2 * out.steps
+
+
+def test_sampling_call_counts_no_replay(gen):
+    """A sampled call runs its steps eagerly: no capture, no replay, and
+    the same draws as a second call from the same seed."""
+    from mtasr_tpu_torch.config import GenerationConfig
+    from mtasr_tpu_torch.generate import engine
+    cfg, model = _graph_model("bf16")
+    wav, amask = _wav_batch()
+    g = GenerationConfig(do_sample=True, temperature=1.0, top_k=50)
+    runs = []
+    for _ in range(2):
+        gen_t = torch.Generator(device="cuda")
+        gen_t.manual_seed(5)
+        runs.append(_decoded(model, cfg, wav, amask, g, 12,
+                             generator=gen_t))
+    (out, counts, _, _, caps), (again, *_) = runs
+    assert out.steps == 11
+    assert caps == 0 and counts[engine.REPLAYS] == 0
+    assert torch.equal(out.sequences, again.sequences)
+
+
+# ---------------------------------------------------------------------------
 # the pipelined stream and the native host library
 # ---------------------------------------------------------------------------
 def _stream_batches(n=3, B=4, seconds=3):
@@ -1421,8 +1602,9 @@ def test_pipelined_stream_on_the_card_equals_sequential_generate(gen,
                                                                  kv_quant):
     """Three batches: the next batch's frontend and layers on the second
     CUDA stream, the same tokens and the same launches as sequential
-    `generate` (#1 once a batch, #2 once a layer a batch, #4 or #6 a
-    decoder layer a step)."""
+    `generate` (#1 once a batch, #2 once a layer a batch; #4 or #6 a
+    decoder layer a step on the card, its wrapper at step 1 and at the
+    capture of the replayed step)."""
     from mtasr_tpu_torch.config import GenerationConfig
     from mtasr_tpu_torch.generate.pipelined import generate_pipelined
     from mtasr_tpu_torch.ops import kernels
@@ -1431,15 +1613,18 @@ def test_pipelined_stream_on_the_card_equals_sequential_generate(gen,
     g = GenerationConfig(kv_quant=kv_quant)
     seq, want = _sequential_counts(model, cfg, batches, g, 24)
     kernels.reset_launch_counts()
-    outs = generate_pipelined(model, cfg, batches, gen=g, max_new_tokens=24)
-    torch.cuda.synchronize()
+    outs, ran = _on_card(lambda: generate_pipelined(
+        model, cfg, batches, gen=g, max_new_tokens=24))
     counts = kernels.launch_counts()
     for o, s in zip(outs, seq):
         assert torch.equal(o.sequences, s.sequences)
-    decode = "decode_attention_int8" if kv_quant else "decode_attention"
+    decode, kernel = (("decode_attention_int8", "decode_int8_kernel")
+                      if kv_quant else ("decode_attention",
+                                        "decode_attn_kernel"))
     assert counts == want
     assert counts["conv0_fused"] == 3 and counts["flash_attention"] == 6
-    assert counts[decode] == 2 * sum(o.steps for o in outs) > 0
+    assert counts[decode] == 2 * sum(min(o.steps, 2) for o in outs) > 0
+    assert ran[kernel] == 2 * sum(o.steps for o in outs)
 
 
 def test_pipelined_stream_runs_the_layers_left_when_rows_end_early(
