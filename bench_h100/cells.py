@@ -3,7 +3,14 @@ root names a cell's configuration and traffic mix; `configs/<config>.json`
 holds the configuration's sizes and precision, `mixes/<mix>.json` the
 traffic's parameters, `limits/<cell>.json` the limits `correct` is judged
 by, and `metrics/<metric>.py` one reader a per-layer metric. A later cell,
-mix, configuration or metric is a new file and a new entry."""
+mix, configuration or metric is a new file and a new entry.
+
+A configuration's decoder family (its top-level `"family"`, `FAMILY`
+without one) names two modules, imported by name: `reference/<family>.py`,
+the plain decoder whose `served_logits` the judge holds served tokens
+against, and `counts/<family>.py`, whose `call_ops` counts the decoder's
+model operations in a served call (`roofline.sot_call_ops`). A new family
+is those two files, its configuration and its cells."""
 from __future__ import annotations
 
 import importlib.util
@@ -14,6 +21,7 @@ from typing import Callable, Dict, List
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+FAMILY = "llama"        # the decoder family of a configuration that names none
 
 
 def read_json(kind: str, name: str, base: Path = HERE) -> dict:
@@ -67,6 +75,10 @@ def metric_reader(name: str, base: Path = HERE) -> Callable:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def family(config: dict) -> str:
+    return config.get("family", FAMILY)
 
 
 def readers(cell: Cell) -> Dict[str, Callable]:

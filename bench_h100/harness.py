@@ -29,11 +29,19 @@ error and the last key of the result. Test-only switches: `--cpu-tiny`
 runs a tiny geometry on the CPU (device tagged "cpu", no device metric);
 `--readings N` reads the judged number of the program and of its
 lower-precision control on N seeds in one process, one call a seed
-(how the limits were set)."""
+(how the limits were set).
+
+What a configuration file chooses besides its sizes: its decoder family
+(`"family"`, `cells.FAMILY` without it), which names the reference the
+judge holds the served tokens against (`bench_h100.reference.<family>`)
+and the count behind `mfu.sot` (`bench_h100.counts.<family>`); and the
+family's own tiny cut (`"tiny": {"decoder": {...}}`, applied after
+`TINY_DECODER`)."""
 from __future__ import annotations
 
 import argparse
 import gc
+import importlib
 import json
 import math
 import subprocess
@@ -100,7 +108,8 @@ def parse(argv):
 
 def geometry(cell: Cell, tiny: bool):
     """(encoder, decoder, composite, mix) dicts, cut to the tiny test
-    geometry with `tiny`."""
+    geometry with `tiny` (the configuration's own `tiny` decoder keys
+    last)."""
     conf = cell.config
     enc, dec = dict(conf["encoder"]), dict(conf["decoder"])
     comp, mix = dict(conf["composite"]), dict(cell.mix)
@@ -110,6 +119,7 @@ def geometry(cell: Cell, tiny: bool):
         ratio = dec["num_attention_heads"] // dec["num_key_value_heads"]
         dec.update(TINY_DECODER, num_attention_heads=heads,
                    num_key_value_heads=max(1, heads // ratio))
+        dec.update(conf.get("tiny", {}).get("decoder", {}))
         comp["separator_hidden"] = 32
         mix.update(TINY_MIX)
         mix["call"] = {k: TINY_CALL.get(k, v)
@@ -248,13 +258,15 @@ def picked(mix, pool, served, seed):
 
 def judge(cell: Cell, w, enc, dec, comp, ids, sample, device,
           control_bits=None, control_logits=None) -> dict:
-    """The judged numbers of a sample (`picked`) against the reference,
-    batch by padded length; every compared number INF where there is no
-    sample."""
+    """The judged numbers of a sample (`picked`) against the reference
+    (the decoder's: the configuration's family's), batch by padded length;
+    every compared number INF where there is no sample."""
     from bench_h100 import judge as J
     if not sample:
         return {"program": {**{k: J.INF for k in cell.limits["compared"]},
                             "tokens": 0}}
+    decoder = importlib.import_module(
+        f"bench_h100.reference.{cells.family(cell.config)}")
     groups = {}
     for i, (_, _, padded, _) in enumerate(sample):
         groups.setdefault(padded, []).append(i)
@@ -266,7 +278,7 @@ def judge(cell: Cell, w, enc, dec, comp, ids, sample, device,
             ctrl = None if control_logits is None else \
                 [control_logits[i] for i in idx]
             parts.append(J.sot_readings(w, enc, dec, ids, wavs, rows, padded,
-                                        device, control_bits, ctrl))
+                                        device, decoder, control_bits, ctrl))
         else:
             parts.append(J.ctc_readings(w, enc, comp["talker_numbers"], ids,
                                         wavs, rows, padded, sample[idx[0]][3],
@@ -275,14 +287,15 @@ def judge(cell: Cell, w, enc, dec, comp, ids, sample, device,
 
 
 def traced_records(prof, window_s, bounds_ns, spans, traced_calls, enc,
-                   dec, comp, mix, precision):
+                   dec, comp, mix, precision, family):
     from bench_h100 import devtrace
     rec = devtrace.collect(prof, window_s, spans.intervals, bounds_ns)
     batches = batches_of(traced_calls)
     rec.counts = {"calls": len(traced_calls),
                   "steps": float(sum(b["steps"] for b in batches))}
     rec.geometry = {"encoder": enc, "decoder": dec, "composite": comp,
-                    "mix": mix, "precision": precision, "batches": batches}
+                    "mix": mix, "precision": precision, "family": family,
+                    "batches": batches}
     return rec
 
 
@@ -392,7 +405,7 @@ def main(argv, t_start: float) -> int:
         from bench_h100 import devtrace
         records = traced_records(prof, traced[1], traced[2], spans,
                                  calls[:traced[0]], enc, dec, comp, mix,
-                                 precision)
+                                 precision, cells.family(conf))
         spans.undo()
         if not tiny:
             for name, read in cells.readers(cell).items():
@@ -439,10 +452,21 @@ def readings(args, cell, cfg, tok, ids, enc, dec, comp, mix, precision,
     the control's numbers on the same sample (the program's own
     lower-precision path, where the cell's limits file names one:
     teacher-forced for SOT (`control.py`), served again for CTC; else the
-    reference in the lower precision), one JSON line each."""
+    reference in the lower precision), one JSON line each. The program's
+    path is the LLaMA family's alone; another family's limits file names
+    `reference_bits`."""
     import torch
     from bench_h100.spans import Recorder
     control = cell.limits["control"]
+    bits = control.get("reference_bits")
+    family = cells.family(cell.config)
+    if not bits and family != cells.FAMILY:
+        raise SystemExit(
+            f"limits/{cell.name}.json: control.program is the LLaMA "
+            f"family's own w8a8 path (control.py, weights.INT8); the "
+            f"decoder family {family!r} takes control.reference_bits, its "
+            f"reference in the precision below, which every family's "
+            f"reference computes")
     talkers = comp.get("talker_numbers", 2)
     rec = Recorder().install()
     if built is not None:
@@ -458,7 +482,6 @@ def readings(args, cell, cfg, tok, ids, enc, dec, comp, mix, precision,
         pool = traffic.serve_calls(mix, s, device)
         tr = transcriber(cfg, model, tok, kv_int8, mix)
         sample = picked(mix, pool, serve(tr, pool[0]), s)
-        bits = control.get("reference_bits")
         forced, ctrl = None, None
         if not bits:
             from mtasr_tpu_torch.utils.quantize import quantize_for_serving

@@ -22,12 +22,12 @@ output length) gives the served transcript, minimised over all such paths
 by a min-max pass over the lattice."""
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from bench_h100.reference import llama as ref_llama
 from bench_h100.reference import separator as ref_sep
 from bench_h100.reference import wavlm as ref_wavlm
 from bench_h100.reference.common import float32_exact, linear
@@ -81,12 +81,15 @@ def served_tokens(row: np.ndarray, eos_id: int) -> np.ndarray:
 
 def sot_readings(w, enc: dict, dec: dict, ids: dict, wavs: List[np.ndarray],
                  tokens: List[np.ndarray], n_samples: int, device,
-                 control_bits: Optional[int] = None,
+                 decoder: ModuleType, control_bits: Optional[int] = None,
                  control_logits: Optional[List[torch.Tensor]] = None) -> dict:
     """{"program": numbers} over the served `tokens` of `wavs`: the widest
-    and the mean `gap_sd` of a served token; with `control_bits` also
-    {"control": numbers}, the same reference in that precision put in the
-    program's place: the gaps of the tokens it ranks first at each
+    and the mean `gap_sd` of a served token against `decoder`, the
+    decoder family's reference module (`reference/<family>.py`: its
+    `served_logits(w, dec, speech, tokens, bos_id, quant=None)` gives per
+    row the logits that predict each served token); with `control_bits`
+    also {"control": numbers}, the same reference in that precision put
+    in the program's place: the gaps of the tokens it ranks first at each
     position, teacher-forced on the same tokens; with `control_logits`
     (the program's own lower-precision path, teacher-forced:
     `control.py`) the same of the tokens those rank first."""
@@ -102,8 +105,8 @@ def sot_readings(w, enc: dict, dec: dict, ids: dict, wavs: List[np.ndarray],
                 speech = linear(w, "enc_to_dec_proj", speech, bits)
             rows = [speech[i, :int(mask8[i].sum())] for i in range(len(wavs))]
             toks = [torch.as_tensor(t, device=device) for t in tokens]
-            logits = ref_llama.served_logits(w, dec, rows, toks, ids["bos"],
-                                             quant=bits)
+            logits = decoder.served_logits(w, dec, rows, toks, ids["bos"],
+                                           quant=bits)
             if key == "program":
                 ref = logits
                 gaps = [gap_sd(z, t) for z, t in zip(ref, toks)]

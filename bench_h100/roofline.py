@@ -9,9 +9,11 @@ once and each output byte written once: the keys and values of the valid
 cache slots of each row, not the whole preallocated cache; its operations
 count the valid (query, key) pairs. A call's model operations count each
 matrix product once at the shapes the call runs (the padded bucket, every
-row of every decode step), with no recomputation."""
+row of every decode step), with no recomputation; the decoder's part is
+its family's (`counts/`)."""
 from __future__ import annotations
 
+import importlib
 from typing import Dict, List, Sequence, Tuple
 
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -127,31 +129,23 @@ def decoder_layer_params(dec: dict) -> int:
 
 
 def sot_call_ops(enc: dict, dec: dict, n_samples: Sequence[int], S: int,
-                 steps: int, int8: bool) -> Dict[str, float]:
-    """{"bf16": ops, "int8": ops} of one served SOT call: the encoder, the
-    projection to the decoder, the prefill over [BOS | speech] (logits of
-    the last frame only) and `steps` decode steps of every row; with
-    `int8` the decoder's linears, its head and the decode attention over
-    the int8 cache are int8 operations."""
+                 steps: int, int8: bool,
+                 family: str = "llama") -> Dict[str, float]:
+    """{"bf16": ops, "int8": ops} of one served SOT call: the encoder and
+    the projection to the decoder here, and the decoder's part (the
+    prefill over [BOS | speech], logits of the last frame only, and
+    `steps` decode steps of every row) from the family's count
+    (`bench_h100.counts.<family>`); with `int8` the decoder's int8 operations
+    apart."""
     B = len(n_samples)
-    T0 = conv_len(enc, S)
     kv0 = [conv_len(enc, n) for n in n_samples]
-    T8 = adapter_lens(enc, T0)[-1]
+    T8 = adapter_lens(enc, conv_len(enc, S))[-1]
     n_valid = [adapter_lens(enc, k)[-1] for k in kv0]
-    Hd, V = dec["hidden_size"], dec["vocab_size"]
-    D, Hq, Ld = head_dim(dec), dec["num_attention_heads"], \
-        dec["num_hidden_layers"]
-    bf16 = encoder_ops(enc, B, S, kv0) + 2 * B * T8 * enc["hidden_size"] * Hd
-    W = decoder_layer_params(dec)
-    Lp = 1 + T8
-    lin = 2 * B * Lp * W * Ld + 2 * B * Hd * V
-    pairs = sum(sum(min(i + 1, 1 + n) for i in range(Lp)) for n in n_valid)
-    bf16 += Ld * attention_ops(D, Hq * pairs)
-    lin += steps * 2 * B * (Ld * W + Hd * V)
-    _, dec_att = decode_attention_call(dec, n_valid, T8, steps, int8)
-    if int8:
-        return {"bf16": bf16, "int8": lin + dec_att}
-    return {"bf16": bf16 + lin + dec_att, "int8": 0.0}
+    decoder = importlib.import_module(
+        f"bench_h100.counts.{family}").call_ops(dec, n_valid, T8, steps, int8)
+    bf16 = encoder_ops(enc, B, S, kv0) + \
+        2 * B * T8 * enc["hidden_size"] * dec["hidden_size"]
+    return {"bf16": bf16 + decoder["bf16"], "int8": decoder["int8"]}
 
 
 def ctc_call_ops(enc: dict, sep_hidden: int, talkers: int, vocab: int,

@@ -1,6 +1,7 @@
 """Nothing under bench_h100/ imports JAX or the JAX package, and the
-reference imports nothing of the program (top-level names compared
-whole: the port's name begins with the JAX package's)."""
+reference and the decoder families' counts import nothing of the program
+(top-level names compared whole: the port's name begins with the JAX
+package's)."""
 import ast
 from pathlib import Path
 
@@ -38,3 +39,13 @@ def test_reference_imports_nothing_of_the_program():
 def test_port_name_is_not_taken_for_the_jax_package():
     # the check compares whole top-level names: the port passes it
     assert "mtasr_tpu_torch".split(".")[0] not in JAX_SIDE
+
+
+def test_family_counts_import_nothing_of_the_program():
+    # a family's count reads shapes alone, as its reference reads weights
+    files = sorted((HERE / "counts").rglob("*.py"))
+    assert HERE / "counts" / "llama.py" in files
+    for f in files:
+        names = top_level_imports(f)
+        assert "mtasr_tpu_torch" not in names, f
+        assert not names & JAX_SIDE, f

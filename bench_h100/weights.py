@@ -16,7 +16,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-# the decoder linears that are served int8 under w8a8: the layers'
+# the decoder linears that are served int8 under w8a8: the LLaMA family's
 # attention and MLP projections and an untied output head
 INT8 = re.compile(r"^decoder\.(model\.layers\.\d+\.(self_attn\.[qkvo]_proj"
                   r"|mlp\.(gate|up|down)_proj)|lm_head)\.weight$")
