@@ -17,19 +17,28 @@
     python3 chip_smoke.py --only-8b        # phases 1, 2 and 18 alone; its
                                            # last line {"ok": true, "only":
                                            # "8b"}
+    python3 chip_smoke.py --only-moonlight # phases 1, 2, phase 3's #13
+                                           # and 19 alone; its last line
+                                           # {"ok": true, "only":
+                                           # "moonlight"}
 
 Phases, one line each, any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA device
    is a failure, nothing falls back to the CPU;
-2. build: compile the seven kernel libraries of `mtasr_tpu_torch/csrc/`,
+2. build: compile the eight kernel libraries of `mtasr_tpu_torch/csrc/`,
    one `nvcc` each, all started together;
 3. kernels: each kernel against its plain PyTorch version at the served
    paths' shapes (B = 8, 10 s audio, WavLM-Large + LLaMA-3.2-1B; the chunk
    kernels at L = 8 and 16 over a full cache), with the error against a
    stated tolerance and both times; the decode kernels (#4, #6) also at
    B = 64 (#4 beside SDPA), and the cluster size each launched at each
-   batch; #7 also at B = 64, L = 16 over S = 1000 slots;
+   batch; #7 also at B = 64, L = 16 over S = 1000 slots; #13 (the routed
+   experts' grouped SwiGLU, no TPU counterpart) at Moonlight-16B-A3B's
+   widths (H 2048, I 1408, 64 experts, top 6) and the benchmark cell's
+   two shapes, a decode step of B 256 and its prefill of 16384 tokens,
+   routed by random scores, beside `torch._grouped_mm` over the sorted
+   rows;
 4. serve (bf16): three `Transcriber.transcribe` calls of 8 padded 6-10 s
    waveforms each, at full width with random bf16 weights from a seeded
    generator, up to 150 new tokens; the kernels' launch counts, set to 0
@@ -213,7 +222,18 @@ Phases, one line each, any failure exits non-zero:
     one call (#1, #2, #4), the whole model's logits within LOGITS_TOL, the
     short prefill (#5), #4 at the served shape; the phase's wall time.
     At 32 layers the w8a8 roundings amplify a sound kernel's last-bit
-    differences, so the int8 legs have their own logits gate.
+    differences, so the int8 legs have their own logits gate;
+19. Moonlight-16B-A3B's blocks (DeepSeek-V3: latent attention over the
+    576-wide cache, 64 sigmoid-routed experts and 2 shared), WavLM-Large
+    and MOONLIGHT_LAYERS decoder layers at the published widths (layer 0
+    dense, the rest experts), bf16, random weights from seed 0: two
+    `transcribe` calls of 8 padded 6-10 s waveforms at 150 new tokens
+    with the launch counts set to 0 just before and read just after (#1,
+    #2, and #13 once an expert layer a forward at the prefill, step 1 and
+    the capture), one more call under a CUDA-activity profiler (every step
+    after the first replayed, #13's gate / up kernel on the card once an
+    expert layer a forward), the RTFx; then #13 held against its plain
+    loop on the inputs the served prefill and step 1 gave it.
 
 Every kernel's record carries its error, its time, its plain version's
 time, the least time the card could take (`bound_ms`, from the bytes the
@@ -307,6 +327,16 @@ CTC_RTOL, CTC_ATOL = 1e-5, 1e-4
 # max|ref|: sound kernels read at most 0.5 at the training shapes, #9 with
 # p 1 % high 3 (PERF.md, Findings)
 BWD_ULPS = 2
+
+# phase 3's #13 and phase 19: Moonlight-16B-A3B's expert widths
+MOE_H, MOE_I, MOE_E, MOE_K = 2048, 1408, 64, 6
+MOE_SOURCE = "mtasr_tpu_torch/csrc/moe_experts.cu"
+# #13 against its plain loop, in bf16 ulps at max|ref|: both round gate,
+# up, silu, the product and y to bf16; the sums run in another order,
+# which can flip one rounding of an intermediate
+MOE_ULPS = 4
+MOONLIGHT_LAYERS = 3  # phase 19: layer 0 (dense) and 2 expert layers
+PROFILE_MARGIN_S = 0.5  # the CUDA profiler's window past a traced call
 
 # H100 SXM published peaks (dense): bf16 tensor cores, int8 tensor cores,
 # f32 outside the tensor cores; HBM bandwidth
@@ -574,6 +604,55 @@ def kernel_phase(torch, card: str, records):
                                                            mc),
               1, p_step(di, qc, k8, v8, kvs, mc), INT8_WHY, keep=False)
     chunk_int8_at(torch, card, 64, 16, Hq, Hkv, 1000, D, randn)
+    moe_kernel_phase(torch, card, records)
+
+
+def moe_kernel_phase(torch, card: str, records) -> None:
+    """#13 against its plain loop over experts at the benchmark cell's two
+    shapes (a decode step of B 256: 1536 pairs, about 24 an expert; its
+    prefill: 16384 tokens, about 1536 an expert), routed by random scores;
+    the step's record is kept, the prefill's under its `prefill` key. The
+    bound: the weights of each expert with pairs once, each pair's input
+    and output row, or the operations at the bf16 peak."""
+    import torch.nn.functional as F
+    from mtasr_tpu_torch.models import moe
+    from mtasr_tpu_torch.ops.kernels import moe_experts as mk
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 13)
+    H, I, E, k = MOE_H, MOE_I, MOE_E, MOE_K
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    w_gu = randn(E * 2 * I, H, scale=H ** -0.5)
+    w_d = randn(E * H, I, scale=I ** -0.5)
+    b_gu = w_gu.reshape(E, 2 * I, H).transpose(1, 2)
+    b_d = w_d.reshape(E, H, I).transpose(1, 2)
+    for T, into in ((256, records), (16384, {})):
+        x = randn(T, H)
+        top = torch.topk(torch.rand((T, E), generator=g, device="cuda"), k,
+                         dim=-1).indices
+        _, rows, offsets, counts = moe.dispatch(top, E)
+        P = T * k
+        read = int((counts > 0).sum())
+        xs, ends = x[rows.long()], offsets[1:].contiguous()
+
+        def library(xs=xs, ends=ends):
+            gu = torch._grouped_mm(xs, b_gu, offs=ends)
+            return torch._grouped_mm(F.silu(gu[:, :I]) * gu[:, I:], b_d,
+                                     offs=ends)
+        compare(torch, card, into, "moe_experts", MOE_SOURCE,
+                "none: no TPU counterpart",
+                lambda: mk.moe_experts(x, rows, offsets, counts, w_gu, w_d),
+                lambda: mk.moe_experts_plain(x, rows, offsets, w_gu, w_d),
+                MOE_ULPS, why=f", {T} tokens, {read} experts read",
+                bound_ms=bound(read * 3 * H * I * 2 + 2 * P * H * 2,
+                               2 * P * 3 * H * I, "bf16"),
+                library=library)
+        if into is not records:
+            records["moe_experts"]["prefill"] = into["moe_experts"]
 
 
 def chunk_int8_at(torch, card: str, B, L, Hq, Hkv, S, D, randn):
@@ -722,16 +801,22 @@ def captured_phase(torch, card: str, records, calls) -> None:
 def expected_counts(cfg, steps, short: bool, int8: bool):
     """Launches of each kernel for `len(steps)` generate calls of `steps`
     decode steps each: conv0 once and flash once per encoder layer per
-    call; a decode kernel per decoder layer per step; a chunk kernel per
-    decoder layer per prefill of at most 16 positions."""
+    call; a decode kernel per decoder layer per step (none under latent
+    attention, which is plain PyTorch); #13 per expert layer per forward
+    (the prefill and each step); a chunk kernel per decoder layer per
+    prefill of at most 16 positions."""
     from mtasr_tpu_torch.ops import kernels
     L_enc = cfg.encoder.num_hidden_layers
-    L_dec = cfg.decoder.num_hidden_layers
+    dec = cfg.decoder
+    L_dec = dec.num_hidden_layers
     out = dict.fromkeys(kernels.WRAPPERS, 0)
     out["conv0_fused"] = len(steps)
     out["flash_attention"] = L_enc * len(steps)
-    out["decode_attention_int8" if int8 else "decode_attention"] = \
-        L_dec * sum(steps)
+    if dec.kv_lora_rank is None:
+        out["decode_attention_int8" if int8 else "decode_attention"] = \
+            L_dec * sum(steps)
+    out["moe_experts"] = sum(dec.moe_layer(i) for i in range(L_dec)) * (
+        len(steps) + sum(steps))
     if short:
         out["decode_attention_int8_chunk" if int8 else
             "decode_attention_chunk"] = L_dec * len(steps)
@@ -802,8 +887,7 @@ def serve_phase(torch, card: str, cfg, transcriber, requests, tag: str,
         f"{counts}")
     if counts != expect or sum(steps) == 0:
         fail(f"{tag}: launch counts {counts} != expected {expect}")
-    name = "decode_int8_kernel" if transcriber.gen.kv_quant else \
-        "decode_attn_kernel"
+    name, per_forward = step_kernel_on_card(cfg, transcriber.gen.kv_quant)
     traced = []
     with mock.patch.object(api_mod, "generate",
                            lambda *a, **kw: traced.append(
@@ -812,7 +896,8 @@ def serve_phase(torch, card: str, cfg, transcriber, requests, tag: str,
             torch, name, lambda: transcriber.transcribe(
                 requests[-1], batch_size=BATCH, max_new_tokens=MAX_NEW))
     n = traced[0].steps
-    want = cfg.decoder.num_hidden_layers * n
+    # a decode kernel runs in the steps alone; #13 in the prefill as well
+    want = per_forward * (n + (name == MOE_KERNEL))
     say(f"serve[{tag}]: a traced call of {n} decode steps, {replays} "
         f"replayed, ran {ran} {name} on the card ({want} wanted)")
     # CUPTI loses a few records of a large trace, replayed or not (on an
@@ -828,6 +913,21 @@ def serve_phase(torch, card: str, cfg, transcriber, requests, tag: str,
     return counts, rtfx
 
 
+MOE_KERNEL = "mtasr_moe_gate_up_kernel"   # #13's first launch, by name
+
+
+def step_kernel_on_card(cfg, int8: bool):
+    """(the card's name of the kernel a decode step launches, its launches
+    a forward): #4 or #6 once a decoder layer; under latent attention with
+    experts, #13's gate / up kernel once an expert layer."""
+    dec = cfg.decoder
+    if dec.kv_lora_rank is not None:
+        return MOE_KERNEL, sum(dec.moe_layer(i)
+                               for i in range(dec.num_hidden_layers))
+    return ("decode_int8_kernel" if int8 else "decode_attn_kernel",
+            dec.num_hidden_layers)
+
+
 def device_step_kernels(torch, name: str, fn):
     """fn() under a CUDA-activity profiler: (the count of the card's kernel
     records whose name holds `name`, the program's decode steps replayed
@@ -841,8 +941,15 @@ def device_step_kernels(torch, name: str, fn):
     torch.cuda.synchronize()
     profiling.take()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # kineto drops the card's records stamped outside the profiler's
+        # window ("out of range"), and the card's clock, converted to the
+        # host's, can lie tens of ms off it (on an H100: 128-532 of a
+        # call's 2384 decode kernels lost): the window opens and closes
+        # PROFILE_MARGIN_S away from the call's first and last kernel
+        time.sleep(PROFILE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     ran = sum(1 for e in prof.profiler.kineto_results.events()
               if e.device_type() == DeviceType.CUDA
               and not e.is_user_annotation() and name in e.name())
@@ -3488,6 +3595,66 @@ def eight_b_phase(torch, card: str, launches, records) -> None:
     say(f"8b: phase 18 wall {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# -- phase 19: Moonlight-16B-A3B's blocks ------------------------------------
+def moonlight_phase(torch, card: str, launches) -> None:
+    """WavLM-Large and Moonlight-16B-A3B's decoder, MOONLIGHT_LAYERS deep,
+    served (module docstring, phase 19)."""
+    from unittest import mock
+
+    from mtasr_tpu_torch.api import Transcriber
+    from mtasr_tpu_torch.config import (
+        GenerationConfig, moonlight_16b_a3b_config,
+    )
+    from mtasr_tpu_torch.models import moe as moe_mod
+    from mtasr_tpu_torch.ops.kernels import moe_experts as mk
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.utils.convert import init_random
+
+    t_phase = time.perf_counter()
+    cfg, tok = full_width.config(
+        decoder=lambda **k: moonlight_16b_a3b_config(
+            num_hidden_layers=MOONLIGHT_LAYERS, **k), mask_time_prob=0.0)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    model = init_random(cfg, g, "cuda", torch.bfloat16)
+    tr = Transcriber(cfg, model, tok, gen=GenerationConfig(do_sample=False))
+    n_dec = sum(p.numel() for p in model.decoder.parameters())
+    torch.cuda.synchronize()
+    say(f"moonlight: WavLM-Large + {MOONLIGHT_LAYERS} Moonlight-16B-A3B "
+        f"layers ({n_dec} decoder parameters bf16), built "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    requests = full_width.waveforms(SEED + 19, 2, BATCH, (6.0, 10.0))
+    counts, rtfx = serve_phase(torch, card, cfg, tr, requests, "moonlight")
+    for name, n in counts.items():
+        launches[name] += n
+
+    # the inputs the served prefill and step 1 (eager; the capture after
+    # it runs nothing) gave #13
+    seen, real = {}, moe_mod.moe_experts
+
+    def keep(*a):
+        key = "step" if a[0].shape[0] == BATCH else "prefill"
+        if key not in seen:
+            seen[key] = tuple(t.clone() for t in a)
+        return real(*a)
+    with mock.patch.object(moe_mod, "moe_experts", keep):
+        breakdown_phase(torch, card, cfg, model, tr, requests[-1])
+    if sorted(seen) != ["prefill", "step"]:
+        fail(f"moonlight: #13 saw {sorted(seen)}, not the prefill and a step")
+    for key, (x, rows, offsets, counts, w_gu, w_d) in sorted(seen.items()):
+        out = mk.moe_experts(x, rows, offsets, counts, w_gu, w_d)
+        ref = mk.moe_experts_plain(x, rows, offsets, w_gu, w_d)
+        err, tol = check_err(torch, f"moe_experts ({key})", out, ref,
+                             MOE_ULPS)
+        say(f"moonlight: #13 on the served {key}'s inputs ({x.shape[0]} "
+            f"tokens, {int((counts > 0).sum())} experts read) against its "
+            f"plain loop: max_abs_err {err:.6g} (tol {tol:.6g})")
+    say(f"moonlight: RTFx {rtfx:.2f} B={BATCH}, phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    del model, tr, seen
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--rank"]:
         rank_main(sys.argv[2:])      # one rank of phase 16
@@ -3546,6 +3713,15 @@ def main() -> None:
         eight_b_phase(torch, card, launches, {})
         say(f"8b: launches {launches} (phase 18 alone: no kernels record)")
         print(json.dumps({"ok": True, "only": "8b"}), flush=True)
+        return
+
+    if "--only-moonlight" in sys.argv[1:]:
+        records, launches = {}, dict.fromkeys(kernels.WRAPPERS, 0)
+        moe_kernel_phase(torch, card, records)
+        moonlight_phase(torch, card, launches)
+        say(json.dumps({"kernels": [{**records["moe_experts"],
+                                     "launches": launches["moe_experts"]}]}))
+        print(json.dumps({"ok": True, "only": "moonlight"}), flush=True)
         return
 
     if "--only-family" in sys.argv[1:]:
@@ -3669,6 +3845,9 @@ def main() -> None:
 
     # -- LLaMA-3.1-8B, int8 from the direct init and bf16 ---------------------
     eight_b_phase(torch, card, launches, records)
+
+    # -- Moonlight-16B-A3B's blocks: latent attention and the experts --------
+    moonlight_phase(torch, card, launches)
 
     records = list(records.values())
     for r in records:

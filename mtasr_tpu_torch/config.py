@@ -140,10 +140,85 @@ class LlamaConfig:
     # the JAX package's backend selectors (no counterpart here)
     scan_layers: bool = False
     decode_attn_impl: str = "pallas"
+    # DeepSeek-V3's blocks (Moonlight-16B-A3B), the port's own: the JAX
+    # package has no such decoder. `kv_lora_rank` set: every layer's
+    # attention is multi-head latent attention (`models/mla.py`) over a
+    # cache of kv_lora_rank + qk_rope_head_dim values a slot;
+    # `n_routed_experts` set: layers from `first_k_dense_replace` on are
+    # mixtures of experts (`models/moe.py`). Unset (the defaults), the
+    # decoder is the LLaMA block and these keys are read by nothing.
+    # `check_deepseek` refuses by name what the port does not implement.
+    kv_lora_rank: Optional[int] = None
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: Optional[int] = None
+    num_experts_per_tok: int = 8
+    n_shared_experts: int = 1
+    moe_intermediate_size: int = 2048
+    first_k_dense_replace: int = 0
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+
+    def __post_init__(self):
+        check_deepseek(self)
 
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    def moe_layer(self, idx: int) -> bool:
+        """Whether decoder layer `idx` is a mixture of experts."""
+        return (self.n_routed_experts is not None
+                and idx >= self.first_k_dense_replace)
+
+
+# the port's decoder fields that the JAX package's LlamaConfig lacks (its
+# defaults stand for them when a JAX config is read, and `to_json` leaves
+# out those still at their defaults, so a LLaMA config.json reads in both)
+DEEPSEEK_FIELDS = (
+    "kv_lora_rank", "q_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+    "v_head_dim", "n_routed_experts", "num_experts_per_tok",
+    "n_shared_experts", "moe_intermediate_size", "first_k_dense_replace",
+    "routed_scaling_factor", "norm_topk_prob", "scoring_func",
+    "topk_method", "n_group", "topk_group")
+
+
+def check_deepseek(cfg: LlamaConfig) -> None:
+    """Refuse, by name, a DeepSeek-V3 setting the port does not implement:
+    the q-LoRA branch, a score other than the sigmoid, a top-k other than
+    `noaux_tc` over one group, rope scaling (the source's mscale) under
+    latent attention."""
+    err = []
+    if cfg.kv_lora_rank is not None:
+        if cfg.q_lora_rank is not None:
+            err.append(f"q_lora_rank={cfg.q_lora_rank} (the q-LoRA branch "
+                       "is not implemented; null projects q directly)")
+        if cfg.rope_scaling is not None:
+            err.append("rope_scaling under latent attention (its mscale "
+                       "is not implemented)")
+    if cfg.n_routed_experts is not None:
+        if cfg.scoring_func != "sigmoid":
+            err.append(f"scoring_func={cfg.scoring_func!r} (only "
+                       "'sigmoid' is implemented)")
+        if cfg.topk_method != "noaux_tc":
+            err.append(f"topk_method={cfg.topk_method!r} (only "
+                       "'noaux_tc' is implemented)")
+        if cfg.n_group != 1 or cfg.topk_group != 1:
+            err.append(f"n_group={cfg.n_group}, topk_group="
+                       f"{cfg.topk_group} (group-limited routing is not "
+                       "implemented; both must be 1)")
+        if not 0 < cfg.num_experts_per_tok <= cfg.n_routed_experts:
+            err.append(f"num_experts_per_tok={cfg.num_experts_per_tok} "
+                       f"not in 1..{cfg.n_routed_experts}")
+    if err:
+        raise ValueError("unsupported decoder config:\n  - "
+                         + "\n  - ".join(err))
 
 
 def llama_1b_config(**kw) -> LlamaConfig:
@@ -183,6 +258,24 @@ def llama_8b_config(**kw) -> LlamaConfig:
                       "high_freq_factor": 4.0, "low_freq_factor": 1.0,
                       "original_max_position_embeddings": 8192},
     )
+    defaults.update(kw)
+    return LlamaConfig(**defaults)
+
+
+def moonlight_16b_a3b_config(**kw) -> LlamaConfig:
+    """Moonlight-16B-A3B's decoder geometry (DeepSeek-V3's blocks:
+    latent attention, 64 sigmoid-routed experts from layer 1; the port's
+    own, the JAX package has no such decoder)."""
+    defaults = dict(
+        vocab_size=163840, hidden_size=2048, intermediate_size=11264,
+        num_hidden_layers=27, num_attention_heads=16, num_key_value_heads=16,
+        max_position_embeddings=8192, rope_theta=50000.0,
+        kv_lora_rank=512, q_lora_rank=None, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=64,
+        num_experts_per_tok=6, n_shared_experts=2, moe_intermediate_size=1408,
+        first_k_dense_replace=1, routed_scaling_factor=2.446,
+        norm_topk_prob=True, scoring_func="sigmoid", topk_method="noaux_tc",
+        n_group=1, topk_group=1)
     defaults.update(kw)
     return LlamaConfig(**defaults)
 
@@ -295,8 +388,14 @@ class SpeechEncoderDecoderConfig:
         return self.decoder.vocab_size + 1
 
     def to_json(self) -> str:
-        """The JAX package's `config.json` text."""
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        """The JAX package's `config.json` text (and the port's
+        `DEEPSEEK_FIELDS` that are not at their defaults)."""
+        d = dataclasses.asdict(self)
+        defaults = LlamaConfig()
+        for name in DEEPSEEK_FIELDS:
+            if d["decoder"][name] == getattr(defaults, name):
+                del d["decoder"][name]
+        return json.dumps(d, indent=2)
 
     @classmethod
     def from_json(cls, s: str) -> "SpeechEncoderDecoderConfig":
@@ -384,9 +483,13 @@ def from_fields(cls, obj):
     """An instance of the port's config class `cls` whose fields are read
     from `obj` by name: a config of the JAX package, or any object with
     the same attribute names. Fields the port does not have are left
-    behind; a field the port has and `obj` lacks raises AttributeError."""
+    behind; a field the port has and `obj` lacks raises AttributeError,
+    except the decoder's `DEEPSEEK_FIELDS`, which take their defaults."""
     kw = {}
     for f in dataclasses.fields(cls):
+        if cls is LlamaConfig and f.name in DEEPSEEK_FIELDS \
+                and not hasattr(obj, f.name):
+            continue
         value = getattr(obj, f.name)
         if f.name in _NESTED:
             value = from_fields(_NESTED[f.name], value)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from mtasr_tpu_torch.config import GenerationConfig, SpeechEncoderDecoderConfig
+from mtasr_tpu_torch.models import moe
 from mtasr_tpu_torch.models.llama import (
     KVCache, embed_tokens, llama_forward, lm_head, local_kv_heads,
 )
@@ -55,7 +56,9 @@ from mtasr_tpu_torch.models.speech_encoder_decoder import (
 from mtasr_tpu_torch.parallel.collectives import all_gather, all_reduce
 from mtasr_tpu_torch.parallel.mesh import dp_rows, gather_rows, take_rows
 from mtasr_tpu_torch.train.lora import merged
-from mtasr_tpu_torch.utils.profiling import annotate, annotated, count
+from mtasr_tpu_torch.utils.profiling import (
+    annotate, annotated, count, tracing,
+)
 
 EOS_CHECK_EVERY = 8
 
@@ -455,11 +458,18 @@ def decode_encoded(model, cfg, enc: EncodedSpeech, prefill_ids: torch.Tensor,
     # the adapters' memory keys and values, computed once a request and a
     # layer (the JAX loop leaves them loop-invariant, which XLA hoists)
     cb = adapter_callback(model, cfg, enc, keep_kv=True)
+    # a traced call counts its own routed pairs (`moe.read_tally`)
+    traced = tracing() and cfg.decoder.n_routed_experts is not None
+    if traced:
+        moe.reset_tally(model.decoder)
     cache, last_logits, n_valid, total_prefill = _prefill(
         model, cfg, enc, prefill_ids, splice_index, S_max, gen.kv_quant, cb)
-    return _decode(model, cfg, cache, last_logits, n_valid, Lp,
-                   total_prefill, enc.encoder_hidden_states.dtype, gen,
-                   max_new_tokens, pick.generator, cb, pick, after_step)
+    out = _decode(model, cfg, cache, last_logits, n_valid, Lp,
+                  total_prefill, enc.encoder_hidden_states.dtype, gen,
+                  max_new_tokens, pick.generator, cb, pick, after_step)
+    if traced:
+        moe.read_tally(model.decoder)
+    return out
 
 
 @annotated("mtasr.engine.generate_ctc")

@@ -51,6 +51,14 @@ class QuantLinear(nn.Module):
         return getattr(self, self.weight_key)
 
 
+class RMSNorm(nn.Module):
+    """An RMSNorm's scale (`ops/norms.py::rms_norm` computes with it)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+
+
 def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """[M, K] int8 @ [N, K]^T int8 -> [M, N] int32, exact. On CUDA,
     cuBLASLt through `torch._int_mm`, which refuses M <= 16: such an

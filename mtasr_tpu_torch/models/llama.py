@@ -43,8 +43,9 @@ import torch
 from torch import nn
 
 from mtasr_tpu_torch.config import LlamaConfig
+from mtasr_tpu_torch.models import mla, moe
 from mtasr_tpu_torch.models.layers import (
-    QuantLinear, dropout, embed, linear, remat_layer, row_linear,
+    QuantLinear, RMSNorm, dropout, embed, linear, remat_layer, row_linear,
 )
 from mtasr_tpu_torch.ops.attention import dot_product_attention
 from mtasr_tpu_torch.ops.int8 import INV127
@@ -62,7 +63,7 @@ from mtasr_tpu_torch.ops.rope import (
 from mtasr_tpu_torch.parallel.collectives import (
     copy_to_tp, gather_from_tp, group_rank, group_size, reduce_from_tp,
 )
-from mtasr_tpu_torch.utils.profiling import annotate
+from mtasr_tpu_torch.utils.profiling import annotate, tracing
 
 
 @dataclass
@@ -86,7 +87,20 @@ class KVCache:
              dtype: torch.dtype, device, quantized: bool = False,
              kv_heads: Optional[int] = None) -> "KVCache":
         """`kv_heads`: the heads this rank holds (`local_kv_heads`; all
-        of them in one process)."""
+        of them in one process). A latent-attention decoder
+        (`cfg.kv_lora_rank`) caches one latent a slot: `k` holds
+        [B, S_max, kv_lora_rank + qk_rope_head_dim] a layer and `v` is
+        empty (`models/mla.py`); it has no int8 form."""
+        if cfg.kv_lora_rank is not None:
+            if quantized:
+                raise NotImplementedError(
+                    "kv_quant: an int8 latent cache (kv_lora_rank) is not "
+                    "implemented")
+            shape = (batch, max_len, mla.latent_width(cfg))
+            return cls(k=[torch.zeros(shape, dtype=dtype, device=device)
+                          for _ in range(cfg.num_hidden_layers)], v=[],
+                       valid=torch.zeros((batch, max_len), dtype=torch.bool,
+                                         device=device))
         kv_heads = kv_heads or cfg.num_key_value_heads
         shape = (batch, max_len, kv_heads * cfg.head_dim_)
         n = cfg.num_hidden_layers
@@ -120,12 +134,6 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), s
 
 
-class RMSNorm(nn.Module):
-    def __init__(self, dim: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(dim))
-
-
 class _SelfAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -138,19 +146,28 @@ class _SelfAttention(nn.Module):
 
 
 class _MLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, width: Optional[int] = None):
         super().__init__()
-        H, I, b = cfg.hidden_size, cfg.intermediate_size, cfg.mlp_bias
+        H, I, b = cfg.hidden_size, width or cfg.intermediate_size, \
+            cfg.mlp_bias
         self.gate_proj = nn.Linear(H, I, bias=b)
         self.up_proj = nn.Linear(H, I, bias=b)
         self.down_proj = nn.Linear(I, H, bias=b)
 
 
 class _DecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    """LLaMA's block, or DeepSeek-V3's where the config asks: latent
+    attention (`kv_lora_rank`) and, from layer `first_k_dense_replace`
+    on, a mixture of experts with shared experts (`n_routed_experts`)."""
+
+    def __init__(self, cfg: LlamaConfig, idx: int):
         super().__init__()
-        self.self_attn = _SelfAttention(cfg)
-        self.mlp = _MLP(cfg)
+        self.self_attn = (mla.LatentAttention(cfg)
+                          if cfg.kv_lora_rank is not None
+                          else _SelfAttention(cfg))
+        self.mlp = (moe.MoE(cfg, _MLP(cfg, cfg.moe_intermediate_size
+                                      * cfg.n_shared_experts))
+                    if cfg.moe_layer(idx) else _MLP(cfg))
         self.input_layernorm = RMSNorm(cfg.hidden_size)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size)
 
@@ -159,7 +176,7 @@ class _Model(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.layers = nn.ModuleDict({str(i): _DecoderLayer(cfg)
+        self.layers = nn.ModuleDict({str(i): _DecoderLayer(cfg, i)
                                      for i in range(cfg.num_hidden_layers)})
         self.norm = RMSNorm(cfg.hidden_size)
 
@@ -183,7 +200,9 @@ class Llama(nn.Module):
         key = torch.device(device)
         if key not in self._rope:
             cfg = self.cfg
-            inv, scaling = compute_rope_freqs(cfg.head_dim_, cfg.rope_theta,
+            dim = (cfg.qk_rope_head_dim if cfg.kv_lora_rank is not None
+                   else cfg.head_dim_)
+            inv, scaling = compute_rope_freqs(dim, cfg.rope_theta,
                                               cfg.rope_scaling)
             self._rope[key] = (torch.from_numpy(inv).to(device), scaling)
         return self._rope[key]
@@ -371,6 +390,9 @@ def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     if lora is not None and kv_cache is not None:
         raise ValueError("the LoRA branch runs without a cache; a cached "
                          "forward takes merged weights (train/lora.py)")
+    if lora is not None and cfg.kv_lora_rank is not None:
+        raise NotImplementedError("the decoder LoRA branch of a latent-"
+                                  "attention decoder is not implemented")
     B, L, _ = inputs_embeds.shape
     device = inputs_embeds.device
     inv_freq, scaling = dec.rope_freqs(device)
@@ -391,21 +413,37 @@ def llama_forward(dec: Llama, cfg: LlamaConfig, inputs_embeds: torch.Tensor,
     elif key_valid_mask is not None:
         mask = mask & key_valid_mask[:, None, :]
     mask = mask[:, None]                                      # [B, 1, L, S]
+    # the slots the latent attention's expanded form reads: through the
+    # chunk's last where the host knows the offset, else all
+    n_read = cache_offset + L if isinstance(cache_offset, int) else S
+    # the experts' tally, while spans are kept (`moe.read_tally`)
+    tally = (moe.tally(dec, cfg, device)
+             if cfg.n_routed_experts is not None and tracing() else None)
 
     def layer(idx, hidden):
         lp = dec.model.layers[str(idx)]
         with annotate("mtasr.decoder.attention"):
             h = rms_norm(hidden, lp.input_layernorm.weight, cfg.rms_norm_eps)
-            hidden = hidden + _attention(
-                lp.self_attn, cfg, h, cos, sin, mask, idx, kv_cache,
-                i_abs, lora_layer=lora_layer(lora, idx),
-                lora_scale=lora.scale if lora is not None else 1.0,
-                generator=generator, lora_dropout=lora_dropout)
+            if cfg.kv_lora_rank is not None:
+                hidden = hidden + mla.latent_attention(
+                    lp.self_attn, cfg, h, cos, sin, mask, idx, kv_cache,
+                    i_abs, n_read)
+            else:
+                hidden = hidden + _attention(
+                    lp.self_attn, cfg, h, cos, sin, mask, idx, kv_cache,
+                    i_abs, lora_layer=lora_layer(lora, idx),
+                    lora_scale=lora.scale if lora is not None else 1.0,
+                    generator=generator, lora_dropout=lora_dropout)
         if layer_callback is not None:
             hidden = layer_callback(idx, hidden)
         with annotate("mtasr.decoder.mlp"):
             h = rms_norm(hidden, lp.post_attention_layernorm.weight,
                          cfg.rms_norm_eps)
+            if isinstance(lp.mlp, moe.MoE):
+                return hidden + moe.moe_forward(
+                    lp.mlp, cfg, h, _mlp,
+                    None if tally is None
+                    else tally[idx - cfg.first_k_dense_replace])
             return hidden + _mlp(lp.mlp, h)
 
     hidden = inputs_embeds

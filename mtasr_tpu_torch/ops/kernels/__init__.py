@@ -13,7 +13,7 @@ from typing import Dict
 
 from mtasr_tpu_torch.ops.kernels import (
     conv_frontend, ctc, decode_attention, decode_attention_chunk,
-    decode_attention_int8, flash_attention,
+    decode_attention_int8, flash_attention, moe_experts,
 )
 
 WRAPPERS = {
@@ -29,6 +29,7 @@ WRAPPERS = {
     "flash_attention_bwd_dpb": flash_attention.flash_attention_bwd_dpb,
     "ctc_alpha": ctc.ctc_alpha,
     "ctc_beta_post": ctc.ctc_beta_post,
+    "moe_experts": moe_experts.moe_experts,
 }
 # one build function per library (the two chunk kernels share one library,
 # the three backward kernels flash_attention_bwd's, the two CTC kernels
@@ -36,7 +37,7 @@ WRAPPERS = {
 _BUILDS = (conv_frontend.build, flash_attention.build,
            flash_attention.build_bwd, decode_attention.build,
            decode_attention_int8.build, decode_attention_chunk.build,
-           ctc.build)
+           ctc.build, moe_experts.build)
 
 
 def build_all() -> None:

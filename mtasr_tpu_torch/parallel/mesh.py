@@ -189,6 +189,11 @@ def layout(shapes: Dict[str, Tuple[int, ...]], cfg, tp: int
     of a full state dict and the model config `cfg`."""
     if tp <= 1:
         return {}
+    if cfg.decoder.kv_lora_rank is not None or \
+            cfg.decoder.n_routed_experts is not None:
+        raise NotImplementedError(
+            "tp over a DeepSeek-V3 decoder (latent attention, experts) is "
+            "not implemented")
     units: Dict[str, List[str]] = {}
     for name in shapes:
         u = _unit_of(name)

@@ -16,7 +16,9 @@ well: each such slot of the model becomes a `QuantLinear` first. A
 `talker_ctc` tree's `separator.*` and `serialized_ctc.{k}.ctc_lo.*` keys
 are the port's parameter names as they are, and so are the bridge and
 adapter family's (`serilized_refine.*`, `ctc_extractor_concat.*`,
-`cross_att_adap.{i}.*`, its scalars 0-d).
+`cross_att_adap.{i}.*`, its scalars 0-d). A DeepSeek-V3 decoder's
+per-expert weights (`mlp.experts.{e}.*_proj.weight`) are stacked into
+the port's two expert tensors a layer (`stack_experts`).
 
 The values may also be torch tensors (`utils/model_io.py` hands over the
 memory-mapped tensors of a model directory, already on their device).
@@ -30,6 +32,7 @@ checkpoint; its decoder optionally in int8 serving form from the start.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -122,13 +125,50 @@ def _lora_slot(model: torch.nn.Module, flat: Dict[str, np.ndarray]) -> None:
     model.decoder_lora = DecoderLoRA(pairs, r, alpha)
 
 
+_EXPERT = re.compile(r"^(.*\.mlp\.experts)\.(\d+)\.(gate|up|down)_proj"
+                     r"\.weight$")
+
+
+def stack_experts(flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A DeepSeek-V3-named flat dict (`transformers`' state dict names:
+    `...mlp.experts.{e}.{gate,up,down}_proj.weight`) in the port's stacked
+    layout: a layer's `...mlp.experts.gate_up_proj` [E * 2I, H] (expert
+    e's gate rows, then its up rows) and `...mlp.experts.down_proj`
+    [E * H, I]. Every other key (the router `mlp.gate.weight` and
+    `mlp.gate.e_score_correction_bias`, `mlp.shared_experts.*`, the
+    latent attention's `self_attn.kv_a_proj_with_mqa.*`, ...) is the
+    port's name as it is. A layer whose experts are not numbered 0..E-1,
+    each with its three weights, is refused."""
+    groups: Dict[str, Dict[int, Dict[str, torch.Tensor]]] = {}
+    out = {}
+    for key, value in flat.items():
+        m = _EXPERT.match(key)
+        if m is None:
+            out[key] = value
+            continue
+        groups.setdefault(m.group(1), {}).setdefault(
+            int(m.group(2)), {})[m.group(3)] = value
+    for stem, experts in groups.items():
+        E = len(experts)
+        if sorted(experts) != list(range(E)) or any(
+                sorted(e) != ["down", "gate", "up"] for e in experts.values()):
+            raise KeyError(f"{stem}: experts must be numbered 0..{E - 1}, "
+                           "each with gate_proj, up_proj and down_proj")
+        out[f"{stem}.gate_up_proj"] = torch.cat(
+            [t for e in range(E)
+             for t in (experts[e]["gate"], experts[e]["up"])])
+        out[f"{stem}.down_proj"] = torch.cat(
+            [experts[e]["down"] for e in range(E)])
+    return out
+
+
 def load_flat(model: torch.nn.Module, flat: Mapping[str, object], *,
               training: bool = False) -> None:
     """Load flat parameters (numpy arrays or torch tensors) into `model`
     (strict: every key must match a parameter or buffer, and every one
     must be given). With `training`, a weight-normed positional conv keeps
     its (g, v). A model on the meta device takes the tensors as given."""
-    flat = {k: _to_tensor(v) for k, v in flat.items()}
+    flat = stack_experts({k: _to_tensor(v) for k, v in flat.items()})
     keep = _pos_conv_slots(model, flat, training)
     # weight norm fused in float32 (kept as (g, v) for training), HF's
     # [1, H, 1, 1] gru_rel_pos_const flattened

@@ -20,8 +20,10 @@
   card's size; `{}` on the CPU, as the JAX CPU device gives.
 
 Every span of the port is named `mtasr.<layer>.<what>` (README.md lists
-them); the counters are `mtasr.engine.decode.steps` and
-`mtasr.engine.decode.graph_replays`.
+them); the counters are `mtasr.engine.decode.steps`,
+`mtasr.engine.decode.graph_replays` and, for a decoder with experts,
+`mtasr.decoder.moe.pairs`, `.pairs_max` and `.experts_read`
+(`models/moe.py::read_tally`, from a tally kept only while spans are).
 """
 from __future__ import annotations
 
@@ -106,6 +108,11 @@ def annotate(name: str):
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _Span(name)
+
+
+def tracing() -> bool:
+    """Whether spans and counters are kept now (a `torch.profiler` runs)."""
+    return bool(_profiler._is_profiler_enabled)
 
 
 def annotated(name: str):

@@ -104,6 +104,12 @@ def quantize_decoder_for_serving(model: nn.Module, mode: str) -> None:
     gets a quantized `lm_head` of its own, whatever its width, so the
     logits product streams int8 (`quantize.py:129-151`)."""
     dec = model.decoder
+    c = getattr(dec, "cfg", None)
+    if c is not None and (c.kv_lora_rank is not None
+                          or c.n_routed_experts is not None):
+        raise NotImplementedError(
+            f"{mode} serving of a DeepSeek-V3 decoder (latent attention, "
+            "experts) is not implemented")
     for layer in dec.model.layers.values():
         quantize_tree(layer.self_attn, mode)
         quantize_tree(layer.mlp, mode)

@@ -1778,3 +1778,192 @@ def test_wavlm_large_other_activations_take_the_conv_only_kernel(gen):
     last = rel(out.last_hidden_state, ref.last_hidden_state)
     print(f"features rel-L2 {feats}, output rel-L2 {last}")
     assert feats <= 0.01 and last <= 0.02
+
+
+# -- DeepSeek-V3's experts and latent attention (Moonlight-16B-A3B) ---------
+def _routed(gen, T, H=2048, I=1408, E=64, k=6):
+    """Tokens, a routing of T tokens to k of E experts (random scores, as
+    the router's top k), its dispatch, and the experts' stacked weights
+    N(0, 1/fan_in)."""
+    from mtasr_tpu_torch.models import moe
+    x = _randn(gen, T, H)
+    top = torch.topk(torch.rand((T, E), generator=gen, device="cuda"), k,
+                     dim=-1).indices
+    order, rows, offsets, counts = moe.dispatch(top, E)
+    w_gu = _randn(gen, E * 2 * I, H, scale=H ** -0.5)
+    w_d = _randn(gen, E * H, I, scale=I ** -0.5)
+    return x, rows, offsets, counts, w_gu, w_d
+
+
+@pytest.mark.parametrize("T", [256, 16384, 37])
+def test_moe_experts_kernel_against_the_plain_loop(gen, T):
+    """The grouped kernel (`csrc/moe_experts.cu`) against the plain loop
+    over experts at Moonlight's widths: a decode step of the cell (B 256,
+    about 24 pairs an expert), its prefill (16384 tokens, about 1536 an
+    expert, many row tiles an expert) and a ragged 37 tokens (empty
+    experts, partial tiles). Both round gate, up, silu, the product and y
+    to bf16; the sums run in another order, which can flip one rounding of
+    an intermediate, so 4 ulps of the largest |y|."""
+    from mtasr_tpu_torch.ops.kernels import moe_experts as mk
+    x, rows, offsets, counts, w_gu, w_d = _routed(gen, T)
+    before = mk.moe_experts.launches
+    out = mk.moe_experts(x, rows, offsets, counts, w_gu, w_d)
+    ref = mk.moe_experts_plain(x, rows, offsets, w_gu, w_d)
+    torch.cuda.synchronize()
+    assert mk.moe_experts.launches == before + 1
+    _check(out, ref, 4)
+
+
+def test_moe_experts_kernel_replays_from_a_graph(gen):
+    """Captured once and replayed on new routings of the same shapes: the
+    kernel reads the offsets on the device, so each replay follows the
+    routing it finds, bit-equal to a direct launch."""
+    from mtasr_tpu_torch.models import moe
+    from mtasr_tpu_torch.ops.kernels import moe_experts as mk
+    x, rows, offsets, counts, w_gu, w_d = _routed(gen, 256)
+    mk.moe_experts(x, rows, offsets, counts, w_gu, w_d)  # build, warm
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        out = mk.moe_experts(x, rows, offsets, counts, w_gu, w_d)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        top = torch.topk(torch.rand((256, 64), generator=gen,
+                                    device="cuda"), 6, dim=-1).indices
+        _, r2, o2, c2 = moe.dispatch(top, 64)
+        rows.copy_(r2)
+        offsets.copy_(o2)
+        counts.copy_(c2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, mk.moe_experts(x, rows, offsets, counts,
+                                               w_gu, w_d))
+
+
+def test_moe_experts_refuses(gen):
+    from mtasr_tpu_torch.ops.kernels import moe_experts as mk
+    x, rows, offsets, counts, w_gu, w_d = _routed(gen, 8, H=256, I=96, E=4,
+                                                  k=2)
+    with pytest.raises(ValueError, match="multiples"):
+        mk.moe_experts(x, rows, offsets, counts, w_gu, w_d)
+    x, rows, offsets, counts, w_gu, w_d = _routed(gen, 8, H=256, I=128, E=4,
+                                                  k=2)
+    with pytest.raises(TypeError, match="int32"):
+        mk.moe_experts(x, rows.long(), offsets, counts, w_gu, w_d)
+    with pytest.raises(TypeError, match="int32"):
+        mk.moe_experts(x, rows, offsets, counts.long(), w_gu, w_d)
+    with pytest.raises(TypeError, match="bf16"):
+        mk.moe_experts(x.float(), rows, offsets, counts, w_gu, w_d)
+    with pytest.raises(NotImplementedError, match="backward"):
+        mk.moe_experts(x.requires_grad_(), rows, offsets, counts, w_gu, w_d)
+
+
+def _moonlight_model(layers=3, **kw):
+    """WavLM-Large (2 layers) with Moonlight's decoder blocks at its widths,
+    `layers` deep, random weights on the card."""
+    from mtasr_tpu_torch.config import moonlight_16b_a3b_config
+    from mtasr_tpu_torch.tools import full_width
+    from mtasr_tpu_torch.utils.convert import init_random
+    cfg, _ = full_width.config(
+        decoder=lambda **k: moonlight_16b_a3b_config(
+            num_hidden_layers=layers, **{**k, **kw}),
+        num_hidden_layers=2, mask_time_prob=0.0)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return cfg, init_random(cfg, g, "cuda", torch.bfloat16)
+
+
+def test_moonlight_replayed_step_logits_equal_the_eager_step(gen):
+    """A greedy loop of Moonlight's blocks (latent attention over the 576-
+    wide cache, the routed experts' kernel, the shared experts) replayed
+    from the step's CUDA graph against the same loop run eagerly: each
+    step's logits, kept by the pick into a buffer inside the graph, equal
+    bit for bit; one capture, the rest replays."""
+    from unittest import mock
+    from mtasr_tpu_torch.config import GenerationConfig
+    from mtasr_tpu_torch.generate import engine
+    from mtasr_tpu_torch.utils import profiling
+    cfg, model = _moonlight_model()
+    wav, amask = _wav_batch(B=6)
+    steps = 12
+    runs = []
+    for replay in (True, False):
+        store = torch.zeros((steps, 6, cfg.decoder.vocab_size),
+                            device="cuda")
+        at = torch.zeros((), dtype=torch.long, device="cuda")
+
+        def pick(logits, g, generator, store=store, at=at):
+            store.index_copy_(0, at.reshape(1), logits.float()[None])
+            at.add_(1)
+            return logits.argmax(-1)
+        with mock.patch.object(engine, "_sample_token", pick), \
+                contextlib.ExitStack() as stack:
+            if not replay:
+                stack.enter_context(mock.patch.object(
+                    engine, "_replayable", lambda *a: False))
+            profiling.take()
+            out, _ = _on_card(lambda: engine.generate(
+                model, cfg, wav, amask,
+                gen=GenerationConfig(do_sample=False), max_new_tokens=steps))
+            _, counts = profiling.take()
+        torch.cuda.synchronize()
+        assert int(at) == steps
+        runs.append((out.sequences, store))
+        assert counts[engine.REPLAYS] == (steps - 2 if replay else 0)
+        enc = cfg.encoder
+        T8 = enc.adapter_output_length(enc.conv_output_length(wav.shape[1]))
+        assert counts["mtasr.decoder.moe.pairs"] == 2 * 6 * 6 * (
+            (1 + T8) + (steps - 1))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_moonlight_tally_counts_the_experts_read_at_b256(gen):
+    """What `moe_experts_roofline.sot` reads its bytes from: in an eager
+    prefill and decode step at B 256 of the whole Moonlight decoder (27
+    layers at its widths, random weights as the benchmark draws them, token
+    embeddings as inputs), under a profiler as a traced call runs, the
+    tally holds each expert's pairs (6 a token) and, for each layer, the
+    forwards in which the expert had any: the prefill's 16384 tokens reach
+    every expert of every layer, and the step's experts read are those
+    with pairs."""
+    from torch.profiler import ProfilerActivity, profile
+    from mtasr_tpu_torch.config import moonlight_16b_a3b_config
+    from mtasr_tpu_torch.models import moe
+    from mtasr_tpu_torch.models.llama import KVCache, Llama, llama_forward
+    cfg = moonlight_16b_a3b_config(vocab_size=163848)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    with torch.device("meta"):
+        dec = Llama(cfg)
+    dec = dec.to(torch.bfloat16).to_empty(device="cuda")
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]):
+        for name, p in dec.named_parameters():
+            if p.dim() == 2:
+                p.normal_(0.0, (0.02 if "embed" in name
+                                else p.shape[1] ** -0.5), generator=g)
+            elif name.endswith("bias"):
+                p.normal_(0.0, 0.02, generator=g)
+            else:
+                p.fill_(1.0)
+        B, P = 256, 64
+        ids = torch.randint(0, cfg.vocab_size, (B, P + 1), generator=g,
+                            device="cuda")
+        emb = dec.model.embed_tokens.weight[ids]
+        pos = torch.arange(P + 1, device="cuda")[None].expand(B, -1)
+        cache = KVCache.init(cfg, B, P + 1, torch.bfloat16, "cuda")
+        llama_forward(dec, cfg, emb[:, :P], pos[:, :P], kv_cache=cache,
+                      cache_offset=0, logits_to_keep=1)
+        tally = dec.__dict__["_moe_tally"]
+        assert tuple(tally.shape) == (26, 2, 64)
+        assert int(tally[:, 0].sum()) == 26 * B * P * 6
+        assert bool((tally[:, 1] == 1).all())
+        moe.reset_tally(dec)
+        llama_forward(dec, cfg, emb[:, P:], pos[:, P:], kv_cache=cache,
+                      cache_offset=torch.tensor(P, device="cuda"),
+                      logits_to_keep=1)
+    assert int(tally[:, 0].sum()) == 26 * B * 6
+    assert torch.equal(tally[:, 1], (tally[:, 0] > 0).long())

@@ -27,6 +27,11 @@ torch.set_num_threads(1)
 def _assert_fields_equal(port, ref):
     for f in dataclasses.fields(port):
         value = getattr(port, f.name)
+        if f.name in tconfig.DEEPSEEK_FIELDS and not hasattr(ref, f.name):
+            # the port's own decoder fields: the JAX package has no such
+            # decoder, so they hold their defaults
+            assert value == f.default, f.name
+            continue
         if dataclasses.is_dataclass(value):
             _assert_fields_equal(value, getattr(ref, f.name))
         else:

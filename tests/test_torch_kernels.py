@@ -19,6 +19,7 @@ from mtasr_tpu_torch.ops.kernels import decode_attention as da
 from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
 from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
 from mtasr_tpu_torch.ops.kernels import flash_attention as fa
+from mtasr_tpu_torch.ops.kernels import moe_experts as me
 
 # one intra-op thread: the suite's workers share the cores
 torch.set_num_threads(1)
@@ -345,8 +346,17 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     assert torch.equal(alpha, ref_alpha) and torch.equal(final, ref_final)
     assert torch.equal(kctc.ctc_beta_post(emit, alpha, *lens, allow),
                        kctc.ctc_beta_post_plain(emit, alpha, *lens, allow))
+    # the routed experts' grouped kernel: the loop over experts
+    x = torch.from_numpy(_rand((3, 128), 6))
+    rows = torch.tensor([0, 2, 1, 0], dtype=torch.int32)
+    offsets = torch.tensor([0, 2, 2, 4], dtype=torch.int32)
+    wgu = torch.from_numpy(_rand((3 * 2 * 64, 128), 7))
+    wd = torch.from_numpy(_rand((3 * 128, 64), 8))
+    counts = torch.tensor([2, 0, 2], dtype=torch.int32)
+    assert torch.equal(me.moe_experts(x, rows, offsets, counts, wgu, wd),
+                       me.moe_experts_plain(x, rows, offsets, wgu, wd))
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
-    assert len(kernels.WRAPPERS) == 11
+    assert len(kernels.WRAPPERS) == 12
 
 
 def test_wrappers_refuse_other_devices_and_bad_shapes():
