@@ -21,12 +21,17 @@
                                            # and 19 alone; its last line
                                            # {"ok": true, "only":
                                            # "moonlight"}
+    python3 chip_smoke.py --only-w8a8      # phases 1, 2, phase 3's w8a8
+                                           # kernels and phase 7's int8
+                                           # serve and logits gate; its
+                                           # last line {"ok": true,
+                                           # "only": "w8a8"}
 
 Phases, one line each, any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA device
    is a failure, nothing falls back to the CPU;
-2. build: compile the eight kernel libraries of `mtasr_tpu_torch/csrc/`,
+2. build: compile the nine kernel libraries of `mtasr_tpu_torch/csrc/`,
    one `nvcc` each, all started together;
 3. kernels: each kernel against its plain PyTorch version at the served
    paths' shapes (B = 8, 10 s audio, WavLM-Large + LLaMA-3.2-1B; the chunk
@@ -38,7 +43,12 @@ Phases, one line each, any failure exits non-zero:
    widths (H 2048, I 1408, 64 experts, top 6) and the benchmark cell's
    two shapes, a decode step of B 256 and its prefill of 16384 tokens,
    routed by random scores, beside `torch._grouped_mm` over the sorted
-   rows;
+   rows; the w8a8 linear's quantize and rescale kernels (no TPU
+   counterpart) bit-equal to their plain versions at the Mistral-7B
+   cell's shapes (M 256, 16384 and 8; K 4096 / 14336; N up to 32776) and
+   WavLM-Large's biased ones, on rows with the quantizer's edges (zeros,
+   exact ties, +-127, the 1e-12 floor), and `linear` on a w8a8
+   `QuantLinear` with both;
 4. serve (bf16): three `Transcriber.transcribe` calls of 8 padded 6-10 s
    waveforms each, at full width with random bf16 weights from a seeded
    generator, up to 150 new tokens; the kernels' launch counts, set to 0
@@ -58,7 +68,9 @@ Phases, one line each, any failure exits non-zero:
    the model's logits gated kernels vs plain on that batch;
 7. int8 serve: the same model quantized w8a8 (decoder) with an int8 KV
    cache, two calls of 8 padded 6-10 s waveforms through the int8 decode
-   kernel (#6), the breakdown and the RTFx beside bf16's; the int8 logits
+   kernel (#6) and the w8a8 kernels (the program's counters of a traced
+   call: every w8a8 linear through both), the breakdown and the RTFx
+   beside bf16's; the int8 logits
    against bf16's; the decoder's int8 kernels against their plain versions
    (prefill and 8 decode steps, the encoder's kernels on both sides); the
    short-prefill request of phase 6 through the int8 chunk kernel (#7);
@@ -336,6 +348,19 @@ MOE_SOURCE = "mtasr_tpu_torch/csrc/moe_experts.cu"
 # which can flip one rounding of an intermediate
 MOE_ULPS = 4
 MOONLIGHT_LAYERS = 3  # phase 19: layer 0 (dense) and 2 expert layers
+W8A8_SOURCE = "mtasr_tpu_torch/csrc/w8a8_rows.cu"
+# phase 3's w8a8 kernels at the benchmark cell's widths (Mistral-7B-v0.3:
+# hidden 4096, MLP 14336, 8 kv heads of 128, the vocabulary grown by 8)
+# and WavLM-Large's 1024 (with its biases): (M, K, [N, ...], bias); a decode
+# step's M 256 first, whose K 4096 -> N 4096 records are kept
+W8A8_SHAPES = ((256, 4096, (4096, 1024, 14336, 32776), False),
+               (256, 14336, (4096,), False),
+               (16384, 4096, (4096, 14336), False),
+               (16384, 14336, (4096,), False),
+               (8, 4096, (4096, 32776), False),
+               (256 * 499, 1024, (1024, 4096), True))
+W8A8_LINEARS = "mtasr.int8.w8a8_linears"    # the program's counters
+W8A8_KERNELS = "mtasr.int8.w8a8_kernels"
 PROFILE_MARGIN_S = 0.5  # the CUDA profiler's window past a traced call
 
 # H100 SXM published peaks (dense): bf16 tensor cores, int8 tensor cores,
@@ -605,6 +630,7 @@ def kernel_phase(torch, card: str, records):
               1, p_step(di, qc, k8, v8, kvs, mc), INT8_WHY, keep=False)
     chunk_int8_at(torch, card, 64, 16, Hq, Hkv, 1000, D, randn)
     moe_kernel_phase(torch, card, records)
+    w8a8_kernel_phase(torch, card, records)
 
 
 def moe_kernel_phase(torch, card: str, records) -> None:
@@ -653,6 +679,126 @@ def moe_kernel_phase(torch, card: str, records) -> None:
                 library=library)
         if into is not records:
             records["moe_experts"]["prefill"] = into["moe_experts"]
+
+
+def w8a8_rows(torch, g, M, K):
+    """x [M, K] bf16 at N(0, 1), its first rows the quantizer's edges: all
+    zero (the 1e-12 floor); max|x| 127, so the scale is exactly 1 and
+    k + 0.5 ties and +-127 fill the row; max|x| 254 with odd integers
+    (ties at a scale of 2); values of 1e-11 (the floor, nonzero q)."""
+    x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+    if M < 4:
+        return x
+    k = torch.arange(K, device="cuda")
+    x[0] = 0
+    x[1] = ((k % 254) - 127 + 0.5).clamp(-127, 127)
+    x[1, :2] = torch.tensor([127.0, -127.0])
+    x[2] = ((k % 254) * 2 - 253).float()
+    x[2, 0] = 254.0
+    x[3] = 1e-11 * ((k % 7) - 3).float()
+    return x
+
+
+def w8a8_kernel_phase(torch, card: str, records) -> None:
+    """The w8a8 linear's quantize and rescale kernels (no TPU counterpart)
+    against their plain versions, bit for bit (`torch.equal`), at the
+    `W8A8_SHAPES` (the Mistral-7B cell's decode step and prefill, M 8
+    under the GEMM's pad of M <= 16, WavLM-Large's biased linears over a
+    call's frames): the quantize on `w8a8_rows`' edge rows and on random
+    rows, the rescale on the int32 products of the random rows' q with
+    random int8 weights; then `linear` on a w8a8 `QuantLinear` bit-equal
+    with the kernels and with the plain versions. Each shape's graph times
+    (kernel and plain, on the random rows) and bound; the first shape's
+    records kept. The bound: x read once and q written (quantize), the
+    product read once and y written (rescale), at 3.35 TB/s."""
+    from unittest import mock
+
+    import mtasr_tpu_torch.models.layers as layers_mod
+    from mtasr_tpu_torch.ops.kernels import w8a8_rows as wr
+    from mtasr_tpu_torch.tools.timing import graph_ms
+    from mtasr_tpu_torch.utils.quantize import quantize_linear
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 23)
+    why = "bit-equal (torch.equal) to the plain version"
+
+    def same(name, shape, out, ref):
+        torch.cuda.synchronize()
+        for o, r in zip(out, ref):
+            if o.shape != r.shape or not torch.equal(o, r):
+                diff = int((o != r).sum()) if o.shape == r.shape else -1
+                fail(f"{name} at {shape}: not bit-equal to its plain "
+                     f"version ({diff} elements differ)")
+
+    def timed(name, shape, run, plain, b):
+        if name not in records:
+            record(torch, card, records, name, W8A8_SOURCE,
+                   "none: no TPU counterpart", 0.0, why, run, plain, b,
+                   shape=shape)
+            records[name]["plain_graph_ms"] = graph_ms(plain)
+            return
+        k, p = graph_ms(run), graph_ms(plain)
+        say(f"kernel {name}: {why}, in a CUDA graph kernel {fmt_ms(k)} "
+            f"plain {fmt_ms(p)} bound {b[0]:.4f} ms ({b[1]}; "
+            f"{b[0] / k:.3f} of it) shape {shape} [{card}]")
+
+    for M, K, Ns, with_bias in W8A8_SHAPES:
+        edges = w8a8_rows(torch, g, M, K)
+        same("w8a8_quantize", (M, K, "edge rows"), wr.w8a8_quantize(edges),
+             wr.w8a8_quantize_plain(edges))
+        # timed on random rows: a zero takes the division's slow path, and
+        # served activations hold few
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        q, sx = wr.w8a8_quantize(x)
+        same("w8a8_quantize", (M, K), (q, sx), wr.w8a8_quantize_plain(x))
+        timed("w8a8_quantize", (M, K), lambda: wr.w8a8_quantize(x),
+              lambda: wr.w8a8_quantize_plain(x),
+              bound(nbytes(x, q, sx), 0, "f32"))
+        for N in Ns:
+            w = torch.randint(-127, 128, (N, K), generator=g, device="cuda",
+                              dtype=torch.int8)
+            acc = layers_mod._int8_matmul(q, w)
+            scale = torch.rand((N,), generator=g, device="cuda") * 1e-3
+            bias = (torch.randn((N,), generator=g, device="cuda")
+                    .to(torch.bfloat16) if with_bias else None)
+            dt = torch.bfloat16
+
+            def run(acc=acc, scale=scale, bias=bias):
+                return wr.w8a8_rescale(acc, sx, scale, bias, dt)
+
+            def plain(acc=acc, scale=scale, bias=bias):
+                return wr.w8a8_rescale_plain(acc, sx, scale, bias, dt)
+            y = run()
+            same("w8a8_rescale", (M, K, N), (y,), (plain(),))
+            timed("w8a8_rescale", (M, N), run, plain,
+                  bound(nbytes(acc, sx, scale, bias, y), 0, "f32"))
+            del acc, w
+
+    # the linear itself: kernels against the plain lines, bit for bit
+    M, K, N = 256, 4096, 14336
+    lin = quantize_linear(
+        torch.randn((N, K), generator=g, device="cuda").to(torch.bfloat16)
+        * 0.02, torch.randn((N,), generator=g, device="cuda")
+        .to(torch.bfloat16), "w8a8")
+    x = w8a8_rows(torch, g, M, K)
+    y = layers_mod.linear(lin, x)
+    with mock.patch.object(layers_mod, "w8a8_quantize",
+                           wr.w8a8_quantize_plain), \
+            mock.patch.object(layers_mod, "w8a8_rescale",
+                              wr.w8a8_rescale_plain):
+        ref = layers_mod.linear(lin, x)
+    same("linear (w8a8, biased)", (M, K, N), (y,), (ref,))
+    say(f"kernel w8a8: `linear` on a biased w8a8 QuantLinear {(M, K, N)} "
+        f"bit-equal with the kernels and with the plain lines [{card}]")
+
+
+def w8a8_linears(model) -> int:
+    """The w8a8 linears a decoder forward calls: each w8a8 `QuantLinear`
+    of the decoder once (the encoder's, under scope "all", are not
+    counted: no phase serves one)."""
+    from mtasr_tpu_torch.models.layers import QuantLinear
+    return sum(isinstance(m, QuantLinear) and m.mode == "w8a8"
+               for m in model.decoder.modules())
 
 
 def chunk_int8_at(torch, card: str, B, L, Hq, Hkv, S, D, randn):
@@ -798,13 +944,14 @@ def captured_phase(torch, card: str, records, calls) -> None:
         f"{calls[0][1][1].shape[1]}, chunk at cache offset 0)")
 
 
-def expected_counts(cfg, steps, short: bool, int8: bool):
+def expected_counts(cfg, steps, short: bool, int8: bool, w8a8: int = 0):
     """Launches of each kernel for `len(steps)` generate calls of `steps`
     decode steps each: conv0 once and flash once per encoder layer per
     call; a decode kernel per decoder layer per step (none under latent
     attention, which is plain PyTorch); #13 per expert layer per forward
     (the prefill and each step); a chunk kernel per decoder layer per
-    prefill of at most 16 positions."""
+    prefill of at most 16 positions; the w8a8 quantize and rescale once
+    each of the decoder's `w8a8` linears per forward."""
     from mtasr_tpu_torch.ops import kernels
     L_enc = cfg.encoder.num_hidden_layers
     dec = cfg.decoder
@@ -820,6 +967,8 @@ def expected_counts(cfg, steps, short: bool, int8: bool):
     if short:
         out["decode_attention_int8_chunk" if int8 else
             "decode_attention_chunk"] = L_dec * len(steps)
+    out["w8a8_quantize"] = out["w8a8_rescale"] = w8a8 * (len(steps)
+                                                         + sum(steps))
     return out
 
 
@@ -840,6 +989,7 @@ def serve_phase(torch, card: str, cfg, transcriber, requests, tag: str,
 
     import mtasr_tpu_torch.api as api_mod
     import mtasr_tpu_torch.models.llama as llama_mod
+    from mtasr_tpu_torch.generate.engine import REPLAYS
     from mtasr_tpu_torch.ops import kernels
 
     steps = []
@@ -879,8 +1029,9 @@ def serve_phase(torch, card: str, cfg, transcriber, requests, tag: str,
         timing.update(walls=walls, audio=audio_s, steps=steps)
     # the step's Python runs at step 1 and at the capture; the replays run
     # the captured kernels without it
+    n8 = w8a8_linears(transcriber.model)
     expect = expected_counts(cfg, [min(n, 2) for n in steps], short,
-                             transcriber.gen.kv_quant)
+                             transcriber.gen.kv_quant, n8)
     say(f"serve[{tag}]: {len(requests)} requests x {BATCH} waveforms, walls "
         f"{[round(x, 3) for x in walls]} s, audio "
         f"{[round(a, 2) for a in audio_s]} s, decode steps {steps}, launches "
@@ -892,10 +1043,20 @@ def serve_phase(torch, card: str, cfg, transcriber, requests, tag: str,
     with mock.patch.object(api_mod, "generate",
                            lambda *a, **kw: traced.append(
                                real_generate(*a, **kw)) or traced[-1]):
-        ran, replays = device_step_kernels(
+        ran, counters = device_step_kernels(
             torch, name, lambda: transcriber.transcribe(
                 requests[-1], batch_size=BATCH, max_new_tokens=MAX_NEW))
     n = traced[0].steps
+    replays = counters.get(REPLAYS, 0)
+    # the traced call's w8a8 linears where Python ran (the prefill, step 1,
+    # the capture), each through both kernels
+    w8 = (counters.get(W8A8_LINEARS, 0), counters.get(W8A8_KERNELS, 0))
+    if w8 != (n8 * (1 + min(n, 2)),) * 2:
+        fail(f"{tag}: the traced call counted {w8} w8a8 linears / calls "
+             f"through the kernels, not {n8 * (1 + min(n, 2))} each")
+    if n8:
+        say(f"serve[{tag}]: the traced call's counters: {w8[0]} w8a8 "
+            f"linears, {w8[1]} through the quantize and rescale kernels")
     # a decode kernel runs in the steps alone; #13 in the prefill as well
     want = per_forward * (n + (name == MOE_KERNEL))
     say(f"serve[{tag}]: a traced call of {n} decode steps, {replays} "
@@ -930,13 +1091,13 @@ def step_kernel_on_card(cfg, int8: bool):
 
 def device_step_kernels(torch, name: str, fn):
     """fn() under a CUDA-activity profiler: (the count of the card's kernel
-    records whose name holds `name`, the program's decode steps replayed
-    from a CUDA graph). CUPTI records each kernel of a replayed graph,
-    correlated to its one graph launch."""
+    records whose name holds `name`, the program's counters: the decode
+    steps replayed from a CUDA graph, `REPLAYS`, among them). CUPTI
+    records each kernel of a replayed graph, correlated to its one graph
+    launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mtasr_tpu_torch.generate.engine import REPLAYS
     from mtasr_tpu_torch.utils import profiling
     torch.cuda.synchronize()
     profiling.take()
@@ -953,7 +1114,7 @@ def device_step_kernels(torch, name: str, fn):
     ran = sum(1 for e in prof.profiler.kineto_results.events()
               if e.device_type() == DeviceType.CUDA
               and not e.is_user_annotation() and name in e.name())
-    return ran, profiling.take()[1].get(REPLAYS, 0)
+    return ran, profiling.take()[1]
 
 
 @contextlib.contextmanager
@@ -962,13 +1123,14 @@ def plain_versions(enabled: bool = True, decoder_only: bool = False):
     decoder_only, the decoder's alone: the encoder keeps its kernels)."""
     from unittest import mock
 
+    import mtasr_tpu_torch.models.layers as layers_mod
     import mtasr_tpu_torch.models.llama as llama_mod
     import mtasr_tpu_torch.models.wavlm as wavlm_mod
     import mtasr_tpu_torch.ops.ctc_fused as ctc_fused
     from mtasr_tpu_torch.ops.kernels import (
         conv_frontend as cf, ctc as kc, decode_attention as da,
         decode_attention_chunk as dc, decode_attention_int8 as di,
-        flash_attention as fa,
+        flash_attention as fa, w8a8_rows as wr,
     )
     if not enabled:
         yield
@@ -985,7 +1147,9 @@ def plain_versions(enabled: bool = True, decoder_only: bool = False):
                (llama_mod, "decode_attention_chunk",
                 dc.decode_attention_chunk_plain),
                (llama_mod, "decode_attention_int8_chunk",
-                dc.decode_attention_int8_chunk_plain)]
+                dc.decode_attention_int8_chunk_plain),
+               (layers_mod, "w8a8_quantize", wr.w8a8_quantize_plain),
+               (layers_mod, "w8a8_rescale", wr.w8a8_rescale_plain)]
     with contextlib.ExitStack() as stack:
         for mod, name, fn in patches:
             stack.enter_context(mock.patch.object(mod, name, fn))
@@ -1109,7 +1273,7 @@ def logits_phase(torch, cfg, model, transcriber, wavs, tag: str,
         n2 = kernels.launch_counts()
         torch.cuda.synchronize()
         replaced = [n for n in kernels.WRAPPERS
-                    if not decoder_only or "decode" in n]
+                    if not decoder_only or "decode" in n or "w8a8" in n]
         if any(n2[n] != n1[n] for n in replaced) or lk.shape != lp.shape:
             fail(f"{tag}: the plain run took the wrong route (launches {n1}"
                  f" -> {n2}) or gave {tuple(lp.shape)} logits")
@@ -2452,8 +2616,11 @@ def spec_leg(torch, card, cfg, model, tr, wavs, wav, amask, source,
     for name, n in counts.items():
         launches[name] += n
     # the prefill of 64 positions takes plain attention
-    expect = expected_counts(cfg, [st.fallback_steps], False, kv_quant)
+    n8 = w8a8_linears(model)
+    expect = expected_counts(cfg, [st.fallback_steps], False, kv_quant, n8)
     expect[chunk] = cfg.decoder.num_hidden_layers * st.spec_steps
+    for name in ("w8a8_quantize", "w8a8_rescale"):   # the verify forwards
+        expect[name] += n8 * st.spec_steps
     (out2, st2), _, wall = counted(torch, run)
     toks = out.sequences.cpu()
     rows, worst = parted(torch, toks, seqs, gap)
@@ -2612,7 +2779,8 @@ def beam_legs(torch, card, cfg, model, tr, requests, wav, amask, greedy,
     for name, n in counts.items():
         launches[name] += n
     steps = [o.steps for o in outs]
-    expect = expected_counts(cfg, steps, False, kv_quant)
+    expect = expected_counts(cfg, steps, False, kv_quant,
+                             w8a8_linears(model))
     finite = all(bool(torch.isfinite(o.scores).all()) for o in outs)
     rtfx = audio[-1] / walls[-1]
     say(f"beam[{leg}]: {len(requests)} transcribe calls x {BATCH} "
@@ -3722,6 +3890,22 @@ def main() -> None:
         say(json.dumps({"kernels": [{**records["moe_experts"],
                                      "launches": launches["moe_experts"]}]}))
         print(json.dumps({"ok": True, "only": "moonlight"}), flush=True)
+        return
+
+    if "--only-w8a8" in sys.argv[1:]:
+        # phase 3's w8a8 kernels, then phase 7's int8 serve and its logits
+        # gate (kernels against the plain versions)
+        records = {}
+        w8a8_kernel_phase(torch, card, records)
+        cfg8, model8, tr8 = full_width.build(SEED, "cuda", torch.bfloat16,
+                                             quantize="w8a8", kv_quant=True)
+        requests = full_width.waveforms(SEED, 3, BATCH, (6.0, 10.0))
+        counts, _ = serve_phase(torch, card, cfg8, tr8, requests[1:], "int8")
+        logits_phase(torch, cfg8, model8, tr8, requests[-1], "int8")
+        say(json.dumps({"kernels": [{**records[n], "launches": counts[n]}
+                                    for n in ("w8a8_quantize",
+                                              "w8a8_rescale")]}))
+        print(json.dumps({"ok": True, "only": "w8a8"}), flush=True)
         return
 
     if "--only-family" in sys.argv[1:]:

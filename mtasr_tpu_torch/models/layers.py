@@ -15,8 +15,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from mtasr_tpu_torch.ops.int8 import INV127
+from mtasr_tpu_torch.ops.kernels.w8a8_rows import w8a8_quantize, w8a8_rescale
 from mtasr_tpu_torch.parallel.collectives import reduce_from_tp
+from mtasr_tpu_torch.utils import profiling
 
 
 class QuantLinear(nn.Module):
@@ -75,18 +76,22 @@ def linear(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """y = x W^T + b, with W cast to x's dtype; a `QuantLinear` computes as
     `mtasr_tpu/models/layers.py:43-69` does: w8a8 quantizes each row of x
     (scale max|x| / 127, at least 1e-12), multiplies int8 x int8 into
-    int32 and rescales in f32; w8 dequantizes the weight into x's dtype."""
+    int32 and rescales in f32 (`ops/kernels/w8a8_rows.py`: two kernels on
+    a card, their plain versions on the CPU; the program's counters
+    `mtasr.int8.w8a8_linears` and `.w8a8_kernels` count the calls and
+    those that ran the kernels); w8 dequantizes the weight into x's
+    dtype."""
     if isinstance(m, QuantLinear):
         if m.mode == "w8a8":
-            xf = x.float()
-            sx = (xf.abs().amax(-1, keepdim=True) * INV127).clamp_min(1e-12)
-            xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
-            acc = _int8_matmul(xq.reshape(-1, x.shape[-1]), m.weight_int8)
-            acc = acc.reshape(*x.shape[:-1], m.out_features)
-            y = (acc.float() * sx * m.scale).to(x.dtype)
-        else:
-            w = m.weight_int8.to(x.dtype) * m.scale.to(x.dtype)[:, None]
-            y = F.linear(x, w)
+            xq, sx = w8a8_quantize(x.reshape(-1, x.shape[-1]).contiguous())
+            acc = _int8_matmul(xq, m.weight_int8)
+            y = w8a8_rescale(acc, sx, m.scale, m.bias, x.dtype)
+            profiling.count("mtasr.int8.w8a8_linears")
+            if xq.is_cuda:     # the two kernels ran (else the plain lines)
+                profiling.count("mtasr.int8.w8a8_kernels")
+            return y.reshape(*x.shape[:-1], m.out_features)
+        w = m.weight_int8.to(x.dtype) * m.scale.to(x.dtype)[:, None]
+        y = F.linear(x, w)
         return y if m.bias is None else y + m.bias.to(x.dtype)
     b = m.bias.to(x.dtype) if m.bias is not None else None
     return F.linear(x, m.weight.to(x.dtype), b)

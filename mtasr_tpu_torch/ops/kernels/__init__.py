@@ -13,7 +13,7 @@ from typing import Dict
 
 from mtasr_tpu_torch.ops.kernels import (
     conv_frontend, ctc, decode_attention, decode_attention_chunk,
-    decode_attention_int8, flash_attention, moe_experts,
+    decode_attention_int8, flash_attention, moe_experts, w8a8_rows,
 )
 
 WRAPPERS = {
@@ -30,14 +30,16 @@ WRAPPERS = {
     "ctc_alpha": ctc.ctc_alpha,
     "ctc_beta_post": ctc.ctc_beta_post,
     "moe_experts": moe_experts.moe_experts,
+    "w8a8_quantize": w8a8_rows.w8a8_quantize,
+    "w8a8_rescale": w8a8_rows.w8a8_rescale,
 }
 # one build function per library (the two chunk kernels share one library,
 # the three backward kernels flash_attention_bwd's, the two CTC kernels
-# ctc's)
+# ctc's, the w8a8 quantize and rescale w8a8_rows')
 _BUILDS = (conv_frontend.build, flash_attention.build,
            flash_attention.build_bwd, decode_attention.build,
            decode_attention_int8.build, decode_attention_chunk.build,
-           ctc.build, moe_experts.build)
+           ctc.build, moe_experts.build, w8a8_rows.build)
 
 
 def build_all() -> None:

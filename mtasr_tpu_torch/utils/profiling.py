@@ -21,7 +21,9 @@
 
 Every span of the port is named `mtasr.<layer>.<what>` (README.md lists
 them); the counters are `mtasr.engine.decode.steps`,
-`mtasr.engine.decode.graph_replays` and, for a decoder with experts,
+`mtasr.engine.decode.graph_replays`, `mtasr.int8.w8a8_linears` and
+`.w8a8_kernels` (`models/layers.py::linear`: w8a8 calls, and those that
+ran the quantize and rescale kernels) and, for a decoder with experts,
 `mtasr.decoder.moe.pairs`, `.pairs_max` and `.experts_read`
 (`models/moe.py::read_tally`, from a tally kept only while spans are).
 """

@@ -522,6 +522,85 @@ def test_int8_linear_small_batch_pads_to_the_int8_gemm(gen):
         assert torch.equal(out.cpu(), ref)
 
 
+def _w8a8_rows(g, M, K, dtype):
+    """x [M, K] at N(0, 1), its first rows the quantizer's edges: zeros;
+    max|x| 127 (a scale of exactly 1) with k + 0.5 ties and +-127; values
+    of 1e-11 (the 1e-12 floor)."""
+    x = torch.randn((M, K), generator=g, device="cuda")
+    k = torch.arange(K, device="cuda")
+    x[0] = 0
+    x[1] = ((k % 254) - 127 + 0.5).clamp(-127, 127)
+    x[1, 0] = 127.0
+    x[2] = 1e-11 * ((k % 7) - 3).float()
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("M,K,N,dtype,bias", [
+    (256, 4096, 1024, torch.bfloat16, False),     # a decode step's k / v
+    (256, 14336, 4096, torch.bfloat16, False),    # its down projection
+    (256, 4096, 32776, torch.bfloat16, False),    # its int8 head
+    (8, 4096, 4096, torch.bfloat16, False),       # M <= 16: the GEMM pads
+    (499, 1024, 4096, torch.bfloat16, True),      # WavLM's biased linears
+    (256, 1000, 1000, torch.bfloat16, True),      # quantize by elements
+    (256, 1000, 1001, torch.bfloat16, True),      # both by elements
+    (64, 4096, 1024, torch.float32, True),        # float32 activations
+])
+def test_w8a8_rows_kernels_bit_equal(gen, M, K, N, dtype, bias):
+    """The w8a8 quantize and rescale kernels against their plain versions,
+    bit for bit, one launch each; where the int8 GEMM takes N (a multiple
+    of 8; else the product is drawn at random), `linear` on the card
+    against `linear` on the CPU, bit for bit."""
+    from mtasr_tpu_torch.models.layers import _int8_matmul, linear
+    from mtasr_tpu_torch.ops.kernels import w8a8_rows as wr
+    from mtasr_tpu_torch.utils.quantize import quantize_linear
+    x = _w8a8_rows(gen, M, K, dtype)
+    n_q, n_r = wr.w8a8_quantize.launches, wr.w8a8_rescale.launches
+    q, sx = wr.w8a8_quantize(x)
+    q0, sx0 = wr.w8a8_quantize_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q0) and torch.equal(sx, sx0)
+    if N % 8:
+        acc = torch.randint(-2 ** 24, 2 ** 24, (M, N), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    else:
+        acc = _int8_matmul(q, torch.randint(-127, 128, (N, K), generator=gen,
+                                            device="cuda", dtype=torch.int8))
+    scale = torch.rand((N,), generator=gen, device="cuda") * 1e-3
+    b = _randn(gen, N, dtype=dtype) if bias else None
+    y = wr.w8a8_rescale(acc, sx, scale, b, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(y, wr.w8a8_rescale_plain(acc, sx, scale, b, dtype))
+    assert (wr.w8a8_quantize.launches, wr.w8a8_rescale.launches) == \
+        (n_q + 1, n_r + 1)
+    if N % 8:
+        return
+    m = quantize_linear(_randn(gen, N, K, scale=0.02, dtype=dtype), b,
+                        "w8a8")
+    out = linear(m, x)
+    m.cpu()
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), linear(m, x.cpu()))
+
+
+def test_w8a8_rows_refuse_what_the_kernels_do_not_take(gen):
+    from mtasr_tpu_torch.ops.kernels import w8a8_rows as wr
+    x = _randn(gen, 16, 64)
+    with pytest.raises(TypeError):
+        wr.w8a8_quantize(x.half())
+    with pytest.raises(ValueError):
+        wr.w8a8_quantize(x.t())
+    q, sx = wr.w8a8_quantize(x)
+    acc = torch.zeros((16, 32), dtype=torch.int32, device="cuda")
+    scale = torch.ones(32, device="cuda")
+    with pytest.raises(ValueError):                # sx on the CPU
+        wr.w8a8_rescale(acc, sx.cpu(), scale, None, torch.bfloat16)
+    with pytest.raises(ValueError):                # a strided product
+        wr.w8a8_rescale(acc.t().contiguous().t(), sx, scale, None,
+                        torch.bfloat16)
+    with pytest.raises(NotImplementedError):       # no backward
+        wr.w8a8_quantize(x.float().requires_grad_())
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     from mtasr_tpu_torch.ops.kernels import conv_frontend as cf
     from mtasr_tpu_torch.ops.kernels import decode_attention as da

@@ -93,7 +93,7 @@ out = generate(model, cfg, wav, amask, max_new_tokens=5,
                gen=GenerationConfig(kv_quant=True))
 assert out.sequences.shape == (2, 5)
 assert set(kernels.launch_counts().values()) == {0}, kernels.launch_counts()
-assert len(kernels.launch_counts()) == 12
+assert len(kernels.launch_counts()) == 14
 # one attention-mode train step through Trainer (fresh model, LoRA)
 from mtasr_tpu_torch.config import TrainingConfig
 from mtasr_tpu_torch.data.pipeline import (PreparedExample,

@@ -20,6 +20,7 @@ from mtasr_tpu_torch.ops.kernels import decode_attention_chunk as dc
 from mtasr_tpu_torch.ops.kernels import decode_attention_int8 as di
 from mtasr_tpu_torch.ops.kernels import flash_attention as fa
 from mtasr_tpu_torch.ops.kernels import moe_experts as me
+from mtasr_tpu_torch.ops.kernels import w8a8_rows as wr
 
 # one intra-op thread: the suite's workers share the cores
 torch.set_num_threads(1)
@@ -355,8 +356,19 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     counts = torch.tensor([2, 0, 2], dtype=torch.int32)
     assert torch.equal(me.moe_experts(x, rows, offsets, counts, wgu, wd),
                        me.moe_experts_plain(x, rows, offsets, wgu, wd))
+    # the w8a8 linear's quantize and rescale
+    xq, sx = wr.w8a8_quantize(x)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (xq, sx), wr.w8a8_quantize_plain(x)))
+    acc = torch._int_mm(xq.repeat(6, 1)[:17], xq[:2].t().contiguous())
+    scale = torch.from_numpy(np.abs(_rand((2,), 9)))
+    assert torch.equal(
+        wr.w8a8_rescale(acc, sx.repeat(6, 1)[:17], scale, None,
+                        torch.bfloat16),
+        wr.w8a8_rescale_plain(acc, sx.repeat(6, 1)[:17], scale, None,
+                              torch.bfloat16))
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
-    assert len(kernels.WRAPPERS) == 12
+    assert len(kernels.WRAPPERS) == 14
 
 
 def test_wrappers_refuse_other_devices_and_bad_shapes():
@@ -398,6 +410,13 @@ def test_wrappers_refuse_other_devices_and_bad_shapes():
             torch.empty((1, 5, 16), device="meta"),
             torch.empty((1, 5, 16), device="meta"),
             torch.ones((1, 2, 5), dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        wr.w8a8_quantize(torch.empty((4, 64), device="meta"))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        wr.w8a8_rescale(torch.empty((4, 8), dtype=torch.int32,
+                                    device="meta"),
+                        torch.empty((4, 1), device="meta"),
+                        torch.empty(8, device="meta"), None, torch.bfloat16)
     k8 = torch.zeros((1, 5, 16), dtype=torch.int8)
     with pytest.raises(ValueError, match="kv_scale"):      # [B, Hkv, S]
         di.decode_attention_int8(torch.zeros(1, 4, 8), k8, k8,
